@@ -1,0 +1,312 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``iterseg_tpu_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Run from the root of a checkout, on a machine with one CUDA card, the CUDA
+toolkit (``nvcc``) and ``g++``. It imports nothing of JAX or of
+``iterseg_tpu``. Phases, each printing one JSON line:
+
+1. the card (``nvidia-smi`` name and power limit) and the build: the CUDA
+   flood kernel (``nvcc``, sm_90a) and the host C++ flood (``g++``), built
+   together into ``build/iterseg_tpu_torch``;
+2. kernel vs plain: the CUDA flood and its plain torch version on a seeded
+   smooth (33, 256, 256) fixture, ``inner_cap`` 1 and 4 — labels equal bit
+   for bit, the same launch count, converged;
+3. forward parity: one (10, 256, 256) chunk through the full-width U-Net
+   (``iterseg_tpu/data/default_unet.npz``, ~10.0 M parameters) on the card
+   with TF32 off and on the CPU, max-abs <= 5e-4;
+4. the main path on one (33, 512, 512) uint16 volume through
+   ``affinity_unet_watershed`` with ``device_flood=False`` (exact host
+   flood) and ``"pallas"`` (the CUDA flood): the kernel launched, no flood
+   fell back, the native host library loaded, equal label support and id
+   sets, agreement >= 0.9; plus the fast path against the generic
+   ``predict_volume`` + ``segment_output_image`` path, bit-equal;
+5. a (2, 33, 256, 256) stack through ``segment_stack``: every frame labelled;
+6. the ``kernels`` line: each hand-written kernel timed on the inputs the
+   main path gave it, against its plain version, with its launches on the
+   main path and its memory bound.
+
+Then the card's name and power limit, and as the last line
+``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
+without CUDA the script exits 2 and prints no result.
+"""
+import json
+import os
+import subprocess
+import sys
+import time
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
+F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+
+
+def emit(obj):
+    print(json.dumps(obj), flush=True)
+
+
+def check(ok, what):
+    """A failed phase raises (``assert`` would vanish under ``python -O``)."""
+    if not ok:
+        raise RuntimeError(f"chip_smoke: {what}")
+
+
+def gpu_line():
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+
+
+def smooth_fixture(shape, n, seed):
+    """Smooth affinity field with ridges at object boundaries and seeds at
+    object peaks: the flood's realistic input class."""
+    import numpy as np
+    from scipy import ndimage as ndi
+
+    r = np.random.default_rng(seed)
+    vol = np.zeros(shape, np.float32)
+    pts = np.stack([r.integers(3, s - 3, size=n) for s in shape], 1)
+    vol[tuple(pts.T)] = 1.0
+    vol = ndi.gaussian_filter(vol, (1.5, 3, 3))
+    vol /= vol.max()
+    aff = np.stack([1.0 - vol] * 3).astype(np.float32)
+    mask = vol > 0.08
+    for a in range(3):
+        mask[(slice(None),) * a + (0,)] = False
+        mask[(slice(None),) * a + (-1,)] = False
+    peaks = np.argwhere((vol == ndi.maximum_filter(vol, size=5)) & mask)
+    seeds = np.zeros(shape, np.int32)
+    seeds[tuple(peaks.T)] = np.arange(1, len(peaks) + 1, dtype=np.int32)
+    return aff, seeds, mask
+
+
+def blob_volume(shape, n, seed):
+    """Seeded synthetic uint16 microscopy-like volume of blurred blobs."""
+    import numpy as np
+    from scipy import ndimage as ndi
+
+    r = np.random.default_rng(seed)
+    vol = np.zeros(shape, np.float32)
+    pts = np.stack([r.integers(2, s - 2, size=n) for s in shape], 1)
+    vol[tuple(pts.T)] = 1.0
+    vol = ndi.gaussian_filter(vol, (1, 4, 4))
+    vol = vol / vol.max() * 50000 + r.integers(0, 500, size=shape)
+    return vol.astype(np.uint16)
+
+
+def cuda_ms(fn, reps=3):
+    """Mean time of ``fn()`` in ms over ``reps`` runs after one warm-up,
+    by CUDA events."""
+    import torch
+
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+        enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def main():
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import numpy as np
+
+    from iterseg_tpu_torch import native
+    from iterseg_tpu_torch.device import f32_numerics
+    from iterseg_tpu_torch.engine import device_pipeline as dp
+    from iterseg_tpu_torch.engine.predict import load_unet, predict_volume
+    from iterseg_tpu_torch.engine.segmentation import affinity_unet_watershed
+    from iterseg_tpu_torch.ops import flood_kernel as fk
+    from iterseg_tpu_torch.ops.watershed import segment_output_image
+
+    dev = torch.device("cuda")
+    gpu = gpu_line()
+    print(gpu, flush=True)
+
+    # 1. build both compiled libraries at once
+    from concurrent.futures import ThreadPoolExecutor
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:
+        jobs = [pool.submit(fk.build), pool.submit(native.get_lib)]
+        for j in jobs:
+            j.result()
+    emit({"phase": "build", "gpu": gpu, "build_s": time.perf_counter() - t0,
+          "native_loaded": native.loaded(),
+          "torch": torch.__version__, "cuda": torch.version.cuda})
+
+    # 2. kernel vs plain on a smooth fixture
+    aff, seeds, mask = (torch.from_numpy(x).to(dev)
+                        for x in smooth_fixture((33, 256, 256), 400, 0))
+    rows = []
+    for cap in (1, 4):
+        lk, nk, ck = fk.affinity_flood(aff, seeds, mask, inner_cap=cap)
+        lp, np_, cp = fk.affinity_flood_plain(aff, seeds, mask,
+                                              inner_cap=cap)
+        check(torch.equal(lk, lp), f"kernel != plain at inner_cap={cap}")
+        check(nk == np_ and ck and cp,
+              f"launches {nk} vs {np_}, converged {ck} {cp}")
+        rows.append({
+            "inner_cap": cap, "launches": nk, "equal": True, "tolerance": 0,
+            "ms": cuda_ms(lambda: fk.affinity_flood(aff, seeds, mask,
+                                                    inner_cap=cap)),
+            "plain_ms": cuda_ms(lambda: fk.affinity_flood_plain(
+                aff, seeds, mask, inner_cap=cap), reps=1),
+        })
+    emit({"phase": "kernel_vs_plain", "shape": list(mask.shape),
+          "labelled": int((lk > 0).sum()), "seeds": int(seeds.max()),
+          "runs": rows})
+
+    # 3. forward parity, one chunk, card (TF32 off) vs CPU
+    model = load_unet(None)
+    n_params = sum(v.size for v in model.params.values())
+    chunk = blob_volume((10, 256, 256), 60, 1).astype(np.float32)
+    chunk = (chunk / chunk.max())[None, None]
+    t0 = time.perf_counter()
+    with torch.no_grad(), f32_numerics():
+        y_gpu = model.module(dev)(torch.from_numpy(chunk).to(dev)).cpu()
+    gpu_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        y_cpu = model.module("cpu")(torch.from_numpy(chunk))
+    cpu_s = time.perf_counter() - t0
+    resid = float((y_gpu - y_cpu).abs().max())
+    check(y_gpu.shape == (1, 5, 10, 256, 256),
+          f"forward shape {y_gpu.shape}")
+    check(bool(torch.isfinite(y_gpu).all()), "non-finite features")
+    check(resid <= 5e-4, f"forward residual {resid} > 5e-4")
+    emit({"phase": "forward_parity", "params": int(n_params),
+          "max_abs": resid, "bound": 5e-4, "gpu_s": gpu_s, "cpu_s": cpu_s})
+
+    # 4. the main path, one (33, 512, 512) volume, both flood modes
+    vol = blob_volume((33, 512, 512), 900, 2)
+    kwargs = dict(chunk_size=(10, 256, 256), margin=(1, 64, 64), debug=True)
+    profiles = []
+    segment = dp.AffinityPipeline.segment
+
+    def profiled(self, volume, out=None, profile=None):
+        profiles.append({} if profile is None else profile)
+        return segment(self, volume, out=out, profile=profiles[-1])
+
+    dp.AffinityPipeline.segment = profiled
+    captured = []
+    flood = fk.affinity_flood
+
+    def capture(*args, **kw):
+        captured.append((args, kw))
+        return flood(*args, **kw)
+
+    fk.affinity_flood = capture
+    runs = {}
+    for name, mode in (("host_cold", False), ("host", False),
+                       ("pallas", "pallas")):
+        if mode == "pallas":
+            fk.reset_launches()
+            dp.reset_flood_fallbacks()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        labels = affinity_unet_watershed(None, vol, None, "smoke", None,
+                                         device_flood=mode, **kwargs)
+        torch.cuda.synchronize()
+        runs[name] = (labels, time.perf_counter() - t0, profiles[-1])
+    main_launches = fk.launches()
+    fk.affinity_flood = flood
+    dp.AffinityPipeline.segment = segment
+    host, pallas = runs["host"][0], runs["pallas"][0]
+    check(main_launches > 0, "the CUDA flood never launched")
+    check(dp.flood_fallbacks() == 0, "the device flood fell back")
+    check(native.loaded(), "the native host flood did not load")
+    check(host.shape == vol.shape and host.dtype == np.int32,
+          f"labels {host.shape} {host.dtype}")
+    check(np.array_equal(host, runs["host_cold"][0]), "repeat run differs")
+    check(np.array_equal(host > 0, pallas > 0), "label support differs")
+    check(set(np.unique(host)) == set(np.unique(pallas)), "id sets differ")
+    sel = host > 0
+    agreement = float((host[sel] == pallas[sel]).mean())
+    check(agreement >= 0.9, f"agreement {agreement} < 0.9")
+    # fast path vs the generic path on a smaller float volume
+    small = blob_volume((33, 256, 256), 250, 3).astype(np.float32)
+    small /= small.max()
+    fast = dp.AffinityPipeline(model, chunk_size=(10, 256, 256),
+                               margin=(1, 64, 64)).segment(small)
+    feats = predict_volume(model, small, (10, 256, 256), (1, 64, 64))
+    generic, _, _ = segment_output_image(feats, (0, 1, 2), 4, 3)
+    check(np.array_equal(fast, generic), "fast path != generic path")
+    emit({"phase": "main_path", "shape": list(vol.shape),
+          "objects": int(host.max()), "labelled_frac": float(sel.mean()),
+          "agreement": agreement, "flood_launches": main_launches,
+          "flood_fallbacks": dp.flood_fallbacks(),
+          "fast_equals_generic": True,
+          "seconds": {k: v[1] for k, v in runs.items()},
+          "voxels_per_s": {k: vol.size / v[1] for k, v in runs.items()},
+          "profile": {k: v[2] for k, v in runs.items()}})
+
+    # 5. a stack through segment_stack
+    stack = np.stack([blob_volume((33, 256, 256), 250, s) for s in (4, 5)])
+    t0 = time.perf_counter()
+    st = affinity_unet_watershed(None, stack, None, "smoke-stack", None,
+                                 **kwargs)
+    stack_s = time.perf_counter() - t0
+    check(st.shape == stack.shape, f"stack labels {st.shape}")
+    check(all(st[t].max() > 0 for t in range(len(st))), "unlabelled frame")
+    emit({"phase": "stack", "shape": list(stack.shape),
+          "objects": [int(st[t].max()) for t in range(len(st))],
+          "seconds": stack_s, "voxels_per_s": stack.size / stack_s})
+
+    # 6. each kernel on the main path's own inputs
+    (k_aff, k_seeds, k_mask), k_kw = captured[-1][0][:3], captured[-1][1]
+    lk, nk, ck = fk.affinity_flood(k_aff, k_seeds, k_mask, **k_kw)
+    lp, np_, cp = fk.affinity_flood_plain(k_aff, k_seeds, k_mask, **k_kw)
+    check(ck and cp and nk == np_,
+          f"launches {nk} vs {np_}, converged {ck} {cp}")
+    err = int((lk.long() - lp.long()).abs().max())
+    check(err == 0, f"kernel differs from plain by {err}")
+    # least time for this flood: its inputs (affinities, seeds, mask) read
+    # once and its labels written once, or the claim steps its free voxels
+    # need at the card's f32 rate, whichever is larger
+    voxels = k_mask.numel()
+    io_s = (3 * 4 + 4 + 1 + 4) * voxels / HBM_BYTES_PER_S
+    free = int((k_mask & (k_seeds == 0)).sum())
+    ops_s = (fk.OPS_PER_FREE_VOXEL_STEP * free * nk * k_kw["inner_cap"]
+             / F32_OPS_PER_S)
+    emit({"kernels": [{
+        "name": "affinity_flood",
+        "route": "cuda",
+        "source": "iterseg_tpu_torch/csrc/affinity_flood.cu",
+        "replaces": "iterseg_tpu/ops/pallas_flood.py:84",
+        "launches": main_launches,
+        "shape": list(k_mask.shape),
+        "flood_launches": nk,
+        "max_abs_err": err,
+        "tolerance": 0,
+        "ms": cuda_ms(lambda: fk.affinity_flood(k_aff, k_seeds, k_mask,
+                                                **k_kw)),
+        "plain_ms": cuda_ms(lambda: fk.affinity_flood_plain(
+            k_aff, k_seeds, k_mask, **k_kw), reps=1),
+        "bound_ms": max(io_s, ops_s) * 1e3,
+        "bound_by": "bytes" if io_s >= ops_s else "operations",
+        # the state traffic of the kernel's own schedule, for comparison
+        "schedule_bound_ms": fk.BYTES_PER_VOXEL_LAUNCH * voxels * nk
+        / HBM_BYTES_PER_S * 1e3,
+        "free_voxels": free,
+        "library_ms": None,
+    }]})
+    print(gpu_line(), flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

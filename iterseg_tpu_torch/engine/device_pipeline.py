@@ -1,0 +1,575 @@
+"""Device-resident affinity segmentation pipeline.
+
+The port of ``iterseg_tpu/engine/device_pipeline.py``'s ``AffinityPipeline``.
+Everything up to the candidates stays on the GPU; the host receives only the
+bit-packed threshold mask, the live prefix of the sorted peak candidates and
+the affinities at masked voxels (an async copy into pinned memory that runs
+under the host's spacing and size-filter work), then runs the exact C++ heap
+flood. With ``device_flood="pallas"`` the flood itself runs on the GPU in
+the hand-written CUDA kernel (``ops/flood_kernel``) and only labels come
+back.
+
+Stages, per volume:
+
+  F  chunk-grid, microbatched U-Net forward and margin-crop reassembly
+     (``get_feature_program``; ``predict_volume`` runs the same program, so
+     the fast and the generic path are bit-identical by construction);
+  P  feature prep (``ops.watershed._prep_feature_maps``);
+  C  threshold compare + MSB-first bit-pack, 3³ max-filter peak candidates
+     above 0.04 in the interior, a stable argsort capped at 2^18;
+  H  host half: spacing, native size-band filter, masked affinity gather,
+     exact heap flood (or the device flood).
+"""
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from ..core.chunks import chunk_slices, make_chunks
+from ..device import f32_numerics, resolve_device
+from ..ops.cc import size_band_filter
+from ..ops.filters import maximum_filter
+from ..ops.watershed_oracle import neighbor_offsets
+from .. import native
+
+__all__ = ["AffinityPipeline", "get_feature_program", "flood_fallbacks",
+           "reset_flood_fallbacks"]
+
+_CAND_CAP = 1 << 18  # max pre-sorted peak candidates shipped to host
+_FLOOD_MAX_LAUNCHES = 512
+_flood_fallbacks = 0
+
+
+def flood_fallbacks() -> int:
+    """Device floods that did not converge and fell back to the host flood
+    since the last reset."""
+    return _flood_fallbacks
+
+
+def reset_flood_fallbacks():
+    global _flood_fallbacks
+    _flood_fallbacks = 0
+
+
+class _HostCopy:
+    """A device tensor on its way to host memory: a non-blocking copy into
+    pinned memory on the current stream, fenced by an event. ``get()``
+    waits for it and returns a numpy array. CPU tensors pass through."""
+
+    def __init__(self, t: torch.Tensor):
+        self._event = None
+        if t.device.type == "cuda":
+            self._host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            self._host.copy_(t, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record()
+        else:
+            self._host = t
+
+    def get(self) -> np.ndarray:
+        if self._event is not None:
+            self._event.synchronize()
+        return self._host.numpy()
+
+
+def _host(x) -> np.ndarray:
+    return x.get() if isinstance(x, _HostCopy) else x.cpu().numpy()
+
+
+def _flood_prep(bits, coords, labs, pshape):
+    """Unpack the host-packed mask bits (MSB first) and scatter the seed
+    labels (max over duplicates) on the device of ``bits``."""
+    psize = int(np.prod(pshape))
+    shifts = torch.arange(7, -1, -1, dtype=torch.uint8, device=bits.device)
+    flat = ((bits[:, None] >> shifts) & 1).reshape(-1)[:psize]
+    mask = flat.to(torch.bool).reshape(pshape)
+    seeds = torch.zeros(psize, dtype=torch.int32, device=bits.device)
+    strides = torch.tensor([pshape[1] * pshape[2], pshape[2], 1],
+                           dtype=torch.int64, device=bits.device)
+    flat_idx = (coords.to(torch.int64) * strides).sum(1)
+    seeds.scatter_reduce_(0, flat_idx, labs, reduce="amax")
+    return mask, seeds.reshape(pshape)
+
+
+def _crop_cast(lab, wide):
+    """Crop the padding ring and cast to the label wire dtype (uint16 when
+    the seed count allows)."""
+    return lab[1:-1, 1:-1, 1:-1].to(torch.int32 if wide else torch.uint16)
+
+
+def _prepare_frame(raw):
+    """Per-frame input contract of the stack path: ``(vol, kept,
+    device_normalize)``. Integer frames (itemsize <= 4) keep their source
+    dtype for the upload and are normalised on the device — bit-identical
+    to ``prepare_volume``'s host ``/ max`` (int -> f32 is exact, max is
+    exact selection, the same f32 division). Float frames take the host
+    ``prepare_volume`` path."""
+    from ..core.volume import prepare_volume, remove_sum_zero_slices
+
+    orig_shape = raw.shape
+    if np.issubdtype(raw.dtype, np.integer) and raw.dtype.itemsize <= 4:
+        vol, kept = raw, None
+        if vol.min() == 0:
+            vol, kept = remove_sum_zero_slices(vol, return_kept=True)
+            if vol.shape == orig_shape:
+                kept = None
+        return np.ascontiguousarray(vol), kept, True
+    vol, kept = prepare_volume(raw.astype(np.float32), return_kept=True)
+    return np.ascontiguousarray(vol), kept, False
+
+
+def _drive_stack(stack, output_labels, skip_labelled, devices,
+                 dispatch_one, finalize_one):
+    """Pipelined 4D drive: frame t+1's device work is dispatched before
+    frame t's host finalisation, with warm-restart skipping of labelled
+    frames. ``dispatch_one(t, device)`` returns a job, ``finalize_one(job)``
+    the frame's labels."""
+    todo = [t for t in range(stack.shape[0])
+            if not (skip_labelled and np.any(np.asarray(output_labels[t])))]
+    lookahead = 1 if devices is None else len(devices)
+    pending = []
+    next_dispatch = 0
+    for i in range(len(todo)):
+        while next_dispatch < len(todo) and next_dispatch <= i + lookahead:
+            t = todo[next_dispatch]
+            device = (None if devices is None
+                      else devices[next_dispatch % len(devices)])
+            pending.append((t, dispatch_one(t, device)))
+            next_dispatch += 1
+        jt, job = pending.pop(0)
+        output_labels[jt] = finalize_one(job)
+        yield jt
+
+
+def _valid_grid(zyx, chunk_size, margin):
+    """Pad/clamp logic shared with predict_volume: z even, y/x %16 chunks."""
+    mults = (2, 16, 16)
+    pads = []
+    for s, c, m in zip(zyx, chunk_size, mults):
+        usable = min(c, s)
+        # pad only when the VOLUME axis is below the minimum; a chunk axis
+        # below it is bumped up to the minimum instead
+        pads.append((0, 0) if usable >= m else (0, max(m - s, 0)))
+    padded = tuple(s + p[1] for s, p in zip(zyx, pads))
+    chunk = tuple(
+        (max(min(int(c), int(s)), m) // m) * m
+        for c, s, m in zip(chunk_size, padded, mults)
+    )
+    marg = tuple(
+        min(int(mg), (min(int(s), int(c)) - 1) // 2)
+        for mg, s, c in zip(margin, padded, chunk)
+    )
+    return pads, padded, chunk, marg
+
+
+def _build_feature_program(model, zyx, chunk_size, margin, microbatch,
+                           normalize=False):
+    """``program(vol numpy zyx, device) -> (C, zyx) float32 tensor on
+    device``: the overlapping chunk grid, grouped into z-ordered microbatches
+    of ``microbatch`` chunks (the last one zero-padded, so every forward has
+    the same batch), each reading one z-slab uploaded in the volume's source
+    dtype and converted (and /max-normalised, with the denominator taken on
+    the host) on the device, then the margin-cropped pieces concatenated
+    back together."""
+    pads, padded, chunk, marg = _valid_grid(zyx, chunk_size, margin)
+    starts, crops = make_chunks(padded, chunk, marg)
+    n = len(starts)
+    B = int(min(microbatch, n))
+    nb = -(-n // B)
+    z_starts = sorted({s[0] for s in starts})
+    y_starts = sorted({s[1] for s in starts})
+    x_starts = sorted({s[2] for s in starts})
+    crop_of = {tuple(s): c for s, c in zip(starts, crops)}
+    order = sorted(range(n), key=lambda i: tuple(starts[i]))
+    batches = [order[b * B:(b + 1) * B] for b in range(nb)]
+    slab_of, rel_starts, pos_of = [], [], {}
+    for b, idxs in enumerate(batches):
+        z0 = min(starts[i][0] for i in idxs)
+        z1 = max(starts[i][0] for i in idxs) + chunk[0]
+        slab_of.append((int(z0), int(z1)))
+        rel_starts.append(tuple(
+            (int(starts[i][0] - z0),) + tuple(int(s) for s in starts[i][1:])
+            for i in idxs))
+        for slot, i in enumerate(idxs):
+            pos_of[tuple(starts[i])] = (b, slot)
+
+    def program(vol, device):
+        vol = np.asarray(vol)
+        if any(p[1] for p in pads):
+            vol = np.pad(vol, pads, mode="edge")
+        net = model.module(device)
+        denom = None
+        if normalize:
+            denom = torch.tensor(np.max(vol.astype(np.float32)),
+                                 dtype=torch.float32, device=device)
+        ys = []
+        with torch.no_grad(), f32_numerics():
+            for b, (z0, z1) in enumerate(slab_of):
+                slab = torch.from_numpy(np.ascontiguousarray(vol[z0:z1]))
+                v = slab.to(device).to(torch.float32)
+                if normalize:
+                    v = v / denom
+                xs = torch.stack([v[chunk_slices(s, chunk)]
+                                  for s in rel_starts[b]])[:, None]
+                if len(rel_starts[b]) < B:
+                    xs = torch.cat([xs, xs.new_zeros(
+                        (B - len(rel_starts[b]),) + xs.shape[1:])])
+                ys.append(net(xs.to(model.compute_dtype)).float())
+
+        def piece(s):
+            b, slot = pos_of[s]
+            cr = crop_of[s]
+            return ys[b][slot][(slice(None),) + tuple(
+                slice(int(a), int(b_)) for a, b_ in cr)]
+
+        zrows = []
+        for zs in z_starts:
+            yrows = [torch.cat([piece((zs, ysr, xsr)) for xsr in x_starts],
+                               dim=3) for ysr in y_starts]
+            zrows.append(torch.cat(yrows, dim=2))
+        out = torch.cat(zrows, dim=1)
+        return out[:, :zyx[0], :zyx[1], :zyx[2]].contiguous()
+
+    program.slab_of = slab_of
+    program.microbatch = B
+    return program
+
+
+def get_feature_program(model, zyx, chunk_size=(10, 256, 256),
+                        margin=(1, 64, 64), microbatch=None,
+                        normalize=False, device=None):
+    """The chunked-forward program for this model and geometry.
+    ``microbatch=None`` resolves through ``predict._pick_batch_size`` so the
+    fast and the generic path run the same batch (part of the numerics)."""
+    zyx = tuple(int(s) for s in zyx)
+    chunk_size = tuple(int(c) for c in chunk_size)
+    margin = tuple(int(m) for m in margin)
+    if microbatch is None:
+        from .predict import _pick_batch_size
+
+        _, padded, chunk, marg = _valid_grid(zyx, chunk_size, margin)
+        starts, _ = make_chunks(padded, chunk, marg)
+        microbatch = _pick_batch_size(len(starts), chunk,
+                                      model.out_channels, device)
+    return _build_feature_program(model, zyx, chunk_size, margin,
+                                  int(microbatch), normalize)
+
+
+def _pack_mask_bits(mask):
+    """Pack a boolean tensor MSB-first (the np.unpackbits layout) into
+    uint8."""
+    mbits = mask.reshape(-1)
+    pad_bits = (-mbits.numel()) % 8
+    if pad_bits:
+        mbits = torch.cat([mbits, mbits.new_zeros(pad_bits)])
+    weights = torch.tensor([128, 64, 32, 16, 8, 4, 2, 1], dtype=torch.uint8,
+                           device=mask.device)
+    return (mbits.reshape(-1, 8).to(torch.uint8) * weights).sum(
+        1, dtype=torch.uint8)
+
+
+class AffinityPipeline:
+    """U-Net → watershed segmentation of one zyx volume, device-resident."""
+
+    @staticmethod
+    def normalize_device_flood(value):
+        """Canonical ``device_flood`` setting: ``False`` (the exact host
+        heap flood) or ``"pallas"`` (the approximate flood in the
+        hand-written CUDA kernel that replaces the Pallas one — the name is
+        kept so JAX callers move over unchanged)."""
+        if value in (None, False, "pallas"):
+            return value or False
+        if value is True or value == "xla":
+            raise NotImplementedError(
+                f"device_flood={value!r}: the XLA-recurrence flood and the "
+                "link-adaptive default arrive with ROADMAP slice 3 "
+                "(on-device floods); use device_flood='pallas'")
+        if value == "exact":
+            raise NotImplementedError(
+                "device_flood='exact' (certificate + repair) arrives with "
+                "ROADMAP slice 3 (on-device floods)")
+        raise ValueError(f"unknown device_flood {value!r}")
+
+    def __init__(self, model, chunk_size=(10, 256, 256),
+                 margin=(1, 64, 64), absolute_thresh=None,
+                 microbatch=None, cand_capacity: int = _CAND_CAP,
+                 normalize: bool = False, device_flood=False,
+                 flood_telemetry: bool = False, device=None):
+        if flood_telemetry:
+            raise NotImplementedError(
+                "flood_telemetry needs the exactness certificate, which "
+                "arrives with ROADMAP slice 3 (on-device floods)")
+        self.model = model
+        self.chunk_size = tuple(chunk_size)
+        self.margin = tuple(margin)
+        self.absolute_thresh = absolute_thresh
+        self.microbatch = microbatch
+        self.cand_capacity = cand_capacity
+        self.normalize = normalize
+        self.device_flood = self.normalize_device_flood(device_flood)
+        self.device = resolve_device(device)
+        self._programs = {}
+        # (pshape, buffer): reused host scatter buffer of the flood's input
+        self._aff_host = (None, None)
+
+    def _cand_program(self, zyx):
+        """Mask packing + sorted peak candidates from P's outputs (exact
+        arithmetic: compare, max filter, stable argsort)."""
+        if zyx in self._programs:
+            return self._programs[zyx]
+        K = self.cand_capacity
+
+        def program(cent_smooth, masking_img, thresh):
+            mask_packed = _pack_mask_bits(masking_img > thresh)
+            cand = (cent_smooth == maximum_filter(cent_smooth, 3))
+            cand = cand & (cent_smooth > 0.04)
+            interior = torch.zeros_like(cand)
+            interior[1:-1, 1:-1, 1:-1] = True
+            cand = cand & interior
+            scores = torch.where(cand, -cent_smooth,
+                                 float("inf")).reshape(-1)
+            order = torch.argsort(scores, stable=True)[:K].to(torch.int32)
+            n_cand = cand.sum().to(torch.int32)
+            return mask_packed, order, n_cand
+
+        self._programs[zyx] = program
+        return program
+
+    def _threshold(self, otsu):
+        if self.absolute_thresh is None:
+            return otsu
+        t = self.absolute_thresh
+        if isinstance(t, np.floating) and t.dtype == np.float64:
+            # NumPy float64 scalars are not NEP-50 "weak": the host compares
+            # f32_array > t in float64. The f32 compare that agrees with it
+            # for every f32 voxel value uses the largest f32 <= t
+            t64 = float(t)
+            t32 = np.float32(t64)
+            if np.float64(t32) > t64:
+                t32 = np.nextafter(t32, np.float32(-np.inf))
+        else:
+            # python floats and f32 scalars compare in f32 on the host
+            t32 = np.float32(float(t))
+        return torch.tensor(t32, dtype=torch.float32, device=otsu.device)
+
+    def _device_outputs(self, x, device=None, normalize=None):
+        """Run F → P → C on a host volume (no host synchronisation) and start
+        the host copies of the mask bits and the candidate count."""
+        from ..ops.watershed import _prep_feature_maps
+
+        device = self.device if device is None else torch.device(device)
+        zyx = tuple(int(s) for s in x.shape)
+        program = get_feature_program(
+            self.model, zyx, self.chunk_size, self.margin,
+            microbatch=self.microbatch,
+            normalize=self.normalize if normalize is None else normalize,
+            device=device,
+        )
+        out = program(x, device=device)
+        aff_pad, cent_smooth, otsu = _prep_feature_maps(out[:3], out[4],
+                                                        out[3])
+        thresh = self._threshold(otsu)
+        mask_packed, order, n_cand = self._cand_program(zyx)(
+            cent_smooth, out[3], thresh)
+        return (aff_pad, _HostCopy(mask_packed), order, _HostCopy(n_cand),
+                thresh, cent_smooth)
+
+    def _dispatch_gather(self, aff_pad, mask_pad):
+        """Gather the affinities at the masked voxels on the device and
+        start their copy to host; returns ``(pre_idx, m, vals)``."""
+        pre_idx = np.flatnonzero(mask_pad.ravel())
+        idx = torch.from_numpy(pre_idx).to(aff_pad.device)
+        vals = _HostCopy(aff_pad.reshape(3, -1)[:, idx])
+        return pre_idx, len(pre_idx), vals
+
+    def _flood_on_device(self, aff_pad, mask_pad, centroids, out=None,
+                         profile=None):
+        """The ``device_flood="pallas"`` flood: upload the filtered mask
+        (packed bits) and the seeds, run the CUDA flood kernel over the
+        device-resident padded affinities, download cropped labels. Returns
+        int32 labels of the cropped shape, or ``None`` when the flood did
+        not converge (the caller then runs the exact host flood)."""
+        from ..ops.flood_kernel import affinity_flood
+
+        global _flood_fallbacks
+        t0 = time.perf_counter()
+        dev = aff_pad.device
+        pshape = mask_pad.shape
+        n = len(centroids)
+        bits = np.packbits(mask_pad.view(np.bool_).ravel())
+        mask_dev, seeds_dev = _flood_prep(
+            torch.from_numpy(bits).to(dev),
+            torch.from_numpy(np.ascontiguousarray(centroids,
+                                                  np.int64)).to(dev),
+            torch.arange(1, n + 1, dtype=torch.int32, device=dev), pshape)
+        t0 = _tick(profile, "upload_mask_seeds", t0)
+        lab_dev, n_launches, conv = affinity_flood(
+            aff_pad, seeds_dev, mask_dev,
+            max_launches=_FLOOD_MAX_LAUNCHES, inner_cap=1)
+        if profile is not None:
+            profile["flood_launches"] = n_launches
+        if not conv:
+            _flood_fallbacks += 1
+            if profile is not None:
+                profile["flood_fallback"] = True
+            return None
+        t0 = _tick(profile, "device_flood", t0)
+        labels = _host(_crop_cast(lab_dev, wide=n >= 2 ** 16)).astype(
+            np.int32)
+        _tick(profile, "download_labels", t0)
+        if out is not None:
+            out[:] = 0
+            view = out.reshape(pshape)[1:-1, 1:-1, 1:-1]
+            view[:] = labels
+            return view
+        return labels
+
+    def segment_stack(self, stack, output_labels, skip_labelled=True,
+                      profile=None, devices=None):
+        """Pipelined 4D (t, z, y, x) segmentation: frame t+1's device work is
+        queued before frame t's host flood runs. Writes ``output_labels[t]``
+        and yields t (warm restart when ``skip_labelled``). ``devices``: a
+        list of one ``torch.device`` (frame parallelism over several GPUs
+        is ROADMAP slice 7)."""
+        from ..core.volume import restore_labels
+
+        if devices is not None and len(devices) > 1:
+            raise NotImplementedError(
+                "segment_stack over several GPUs arrives with ROADMAP "
+                "slice 7 (multi-GPU); pass one device")
+
+        def dispatch_one(t, device):
+            raw = np.asarray(stack[t])
+            vol, kept, dev_norm = _prepare_frame(raw)
+            outs = self._device_outputs(
+                vol, device=device, normalize=True if dev_norm else None)
+            return vol.shape, outs, kept, raw.shape
+
+        def finalize_one(job):
+            zyx, outs, kept, orig_shape = job
+            labels = self._finalize(zyx, outs, profile=profile)
+            return restore_labels(labels, kept, orig_shape)
+
+        yield from _drive_stack(stack, output_labels, skip_labelled,
+                                devices, dispatch_one, finalize_one)
+
+    def segment(self, volume, out=None, profile=None):
+        """Instance labels (int32, ``volume.shape``) for one prepared zyx
+        volume. Integer volumes upload in their source dtype."""
+        volume = np.asarray(volume)
+        if (np.issubdtype(volume.dtype, np.integer)
+                and volume.dtype.itemsize <= 4):
+            volume = np.ascontiguousarray(volume)
+        else:
+            volume = np.ascontiguousarray(volume, dtype=np.float32)
+        zyx = volume.shape
+        t0 = time.perf_counter()
+        outs = self._device_outputs(volume)
+        _host(outs[3])  # fence: the count comes from the end of the program
+        _tick(profile, "device_program", t0)
+        return self._finalize(zyx, outs, out=out, profile=profile)
+
+    def _finalize(self, zyx, outs, out=None, profile=None):
+        """Host half: unpack the mask, spacing, size filter, masked affinity
+        gather, flood. The gather is taken at the pre-filter mask (a
+        superset of what the flood reads), so its download runs under the
+        host's spacing and size-filter work."""
+        from ..ops.peaks import _ensure_spacing
+
+        aff_pad, mask_packed, order, n_cand, thresh, cent_smooth = outs
+        t0 = time.perf_counter()
+        nvox = int(np.prod(zyx))
+        n_cand = int(_host(n_cand))
+        overflow = n_cand > self.cand_capacity
+        order_small = None if overflow else _HostCopy(order[:n_cand])
+        mask_u8 = np.unpackbits(_host(mask_packed))[:nvox].reshape(zyx)
+        mask_pad = np.pad(mask_u8, 1)
+        t0 = _tick(profile, "download_mask_cands", t0)
+        if not self.device_flood:
+            pre_idx, m, vals = self._dispatch_gather(aff_pad, mask_pad)
+            t0 = _tick(profile, "gather_dispatch", t0)
+        if overflow:
+            from ..ops.peaks import peak_local_max
+
+            cand_coords = peak_local_max(cent_smooth, threshold_abs=0.04)
+        else:
+            idx_sorted = _host(order_small)[:n_cand]
+            cand_coords = np.stack(np.unravel_index(idx_sorted, zyx), axis=1)
+        centroids = _ensure_spacing(cand_coords, spacing=1) + 1
+        t0 = _tick(profile, "host_spacing", t0)
+        try:
+            mask_pad = native.band_filter_cc6(mask_pad, 10, 10000000)
+            if len(centroids):
+                centroids = centroids[mask_pad[tuple(centroids.T)]]
+        except native.NativeUnavailable:
+            mask_pad, centroids = size_band_filter(
+                mask_pad.view(np.bool_), centroids,
+                min_area=10, max_area=10000000,
+            )
+        t0 = _tick(profile, "host_mask_filter", t0)
+        if self.device_flood:
+            if len(centroids):
+                labels = self._flood_on_device(aff_pad, mask_pad, centroids,
+                                               out=out, profile=profile)
+                if labels is not None:
+                    return labels
+            pre_idx, m, vals = self._dispatch_gather(aff_pad, mask_pad)
+            t0 = _tick(profile, "gather_dispatch", t0)
+        return self._host_flood(pre_idx, m, vals, mask_pad, centroids,
+                                out=out, profile=profile)
+
+    def _host_flood(self, pre_idx, m, vals, mask_pad, centroids, out=None,
+                    profile=None):
+        """The exact host-heap half: take the masked affinity gather,
+        scatter it into the reused host buffer, seed the markers and run the
+        C++ priority flood (pure-python oracle fallback). Returns cropped
+        int32 labels."""
+        t0 = time.perf_counter()
+        vals = _host(vals)[:, :m]
+        t0 = _tick(profile, "gather_affinities", t0)
+        pshape = mask_pad.shape
+        # every index the flood reads (in-mask voxels of this call) is
+        # written below, so stale values from an earlier frame are never
+        # consumed
+        if self._aff_host[0] != pshape:
+            self._aff_host = (pshape,
+                              np.empty((3, mask_pad.size), np.float32))
+        aff_host = self._aff_host[1]
+        aff_host[:, pre_idx] = vals
+        offsets, axes = neighbor_offsets(pshape)
+        n_half = len(offsets) // 2
+        val_off = offsets.copy()
+        val_off[:n_half] = 0
+        if out is None:
+            output = np.zeros(mask_pad.size, np.int32)
+        else:
+            output = out
+            output[:] = 0
+        if len(centroids):
+            markers = np.ravel_multi_index(tuple(centroids.T), pshape)
+            output[markers] = np.arange(len(markers), dtype=np.int32) + 1
+            try:
+                native.priority_flood(
+                    aff_host, offsets, axes, val_off,
+                    markers.astype(np.int64),
+                    np.zeros(len(markers), np.float32),
+                    mask_pad.ravel(), output,
+                )
+            except native.NativeUnavailable:
+                from ..ops import watershed_oracle as oracle
+
+                output[:] = 0
+                oracle.affinity_flood_py(
+                    aff_host.reshape((3,) + pshape), centroids,
+                    mask_pad.view(np.bool_), output=output,
+                )
+        _tick(profile, "flood", t0)
+        return output.reshape(pshape)[1:-1, 1:-1, 1:-1]
+
+
+def _tick(profile, name, t0):
+    if profile is not None:
+        profile[name] = profile.get(name, 0.0) + (time.perf_counter() - t0)
+    return time.perf_counter()

@@ -1,0 +1,472 @@
+"""Segmenter registry and batch-segmentation driver (affinity route).
+
+The port of ``iterseg_tpu/engine/segmentation.py`` for the
+``affinity-unet-watershed`` segmenter: config prep, the per-volume process,
+``segmentation_wrapper`` (label store allocation, the frame loop, the
+optional background worker), ``segmentation_loop`` with its warm restart
+(labelled frames of a 4D store are skipped), ``segment_single_volume`` and
+the ``segmenters`` registry. Signatures are the JAX package's; the
+keyword-only ``devices`` takes a list of one ``torch.device`` (``None``
+means CUDA). The DoG segmenter is ROADMAP slice 2.
+"""
+from __future__ import annotations
+
+import json
+import os
+import pathlib
+import threading
+from types import SimpleNamespace
+from typing import Callable, Union
+
+import numpy as np
+
+from ..core.volume import prepare_volume, restore_labels
+from ..io.zarr_io import save_labels_to_ome
+from ..ops import watershed as ws
+from .predict import load_unet, predict_volume
+
+__all__ = [
+    "affinity_unet_watershed",
+    "affinity_watershed_prep_config",
+    "affinity_watershed_for_chunks",
+    "segmentation_wrapper",
+    "SegmentationWorker",
+    "segmentation_loop",
+    "segment_single_volume",
+    "allocate_labels_store",
+    "read_config_json",
+    "segmenters",
+]
+
+
+def _as_layer(obj, name="input"):
+    """Accept napari-like layers or bare arrays (arrays first: an ndarray's
+    ``.data`` is its raw buffer)."""
+    if (
+        hasattr(obj, "data")
+        and not isinstance(obj, np.ndarray)
+        and not isinstance(getattr(obj, "data"), memoryview)
+    ):
+        return obj
+    data = obj
+    return SimpleNamespace(
+        data=data,
+        scale=np.ones(getattr(data, "ndim", 3)),
+        translate=np.zeros(getattr(data, "ndim", 3)),
+        name=name,
+        metadata={},
+    )
+
+
+def read_config_json(path_to_json):
+    with open(path_to_json, "r") as f:
+        return json.load(f)
+
+
+def _config_or(config, key, default):
+    """Missing or ``null`` falls back to the default; explicit falsy values
+    are honoured."""
+    value = config.get(key)
+    return default if value is None else value
+
+
+def _single_device(devices):
+    """The one device a run uses: ``None`` is CUDA; a list holds exactly
+    one device until multi-GPU frame parallelism (ROADMAP slice 7)."""
+    from ..device import resolve_device
+
+    if devices is None:
+        return resolve_device(None)
+    devices = list(devices)
+    if len(devices) != 1:
+        raise NotImplementedError(
+            f"devices={devices}: several GPUs arrive with ROADMAP slice 7 "
+            "(multi-GPU); pass a list of one torch.device")
+    return resolve_device(devices[0])
+
+
+def affinity_watershed_prep_config(input_volume_layer, unet_or_config_file,
+                                   reference_layer, compute_dtype=None,
+                                   device_flood=None,
+                                   flood_telemetry=None):
+    """Resolve the U-Net source and allocate the scratch feature volume.
+
+    ``unet_or_config_file``: a ``.npz``/``.pt`` checkpoint, a JSON config
+    (``unet`` — a path, ``"labels layer"`` for the reference layer's
+    ``metadata["unet"]``, or ``"default"`` — plus optional
+    ``affinities_extent``, ``compute_dtype``, ``device_flood``), or ``None``
+    for the bundled default checkpoint. ``compute_dtype="bfloat16"`` runs the
+    forward in bf16; ``device_flood="pallas"`` floods on the GPU with the
+    CUDA kernel (approximate; the default is the exact host flood)."""
+    unet = None
+    affinities_extent = 1
+    if isinstance(unet_or_config_file, pathlib.PurePath):
+        unet_or_config_file = str(unet_or_config_file)
+    if isinstance(unet_or_config_file, str):
+        if unet_or_config_file.endswith(".json"):
+            config = read_config_json(unet_or_config_file)
+            unet = config.get("unet")
+            affinities_extent = _config_or(config, "affinities_extent", 1)
+            if compute_dtype is None:
+                compute_dtype = config.get("compute_dtype")
+            if device_flood is None:
+                device_flood = config.get("device_flood")
+            if flood_telemetry is None:
+                flood_telemetry = config.get("flood_telemetry")
+            if unet == "labels layer":
+                unet = reference_layer.metadata["unet"]
+            if unet == "default":
+                unet = None
+        elif unet_or_config_file.endswith((".pt", ".pth", ".npz")):
+            unet = unet_or_config_file
+    if unet is not None:
+        m = (
+            f"There was no file at the provided location: {unet}\n"
+            "Make sure a unet checkpoint lives here..."
+        )
+        assert os.path.exists(unet), m
+    if compute_dtype is None:
+        model = load_unet(unet)
+    else:
+        model = load_unet(unet, compute_dtype=compute_dtype)
+    num_pred_channels = 3 * affinities_extent + 2
+    data = input_volume_layer.data
+    output_volume = np.zeros(
+        (num_pred_channels,) + tuple(data.shape[-3:]), dtype=np.float32
+    )
+    return {"unet": model, "output_volume": output_volume,
+            "pipeline_cache": {}, "device_flood": device_flood or False,
+            "flood_telemetry": bool(flood_telemetry)}
+
+
+def _affinity_pipeline_ready(unet, output_volume,
+                             use_device_pipeline=True):
+    """Whether ``affinity_watershed_for_chunks`` takes the device-pipeline
+    fast path — one definition, shared with ``segment_single_volume``'s
+    integer-upload gate."""
+    return (use_device_pipeline and unet is not None
+            and getattr(output_volume, "shape", (0,))[0] == 5)
+
+
+def _pipeline(cache, unet, chunk_size, margin, device_flood,
+              flood_telemetry=False, device_normalize=False, device=None):
+    from .device_pipeline import AffinityPipeline
+
+    device_flood = AffinityPipeline.normalize_device_flood(device_flood)
+    key = (tuple(chunk_size), tuple(margin), device_flood,
+           bool(flood_telemetry), bool(device_normalize), str(device))
+    if key not in cache:
+        cache[key] = AffinityPipeline(
+            unet, chunk_size=chunk_size, margin=margin,
+            device_flood=device_flood, flood_telemetry=flood_telemetry,
+            normalize=bool(device_normalize), device=device,
+        )
+    return cache[key]
+
+
+def affinity_watershed_for_chunks(
+    input_volume,
+    current_output,
+    chunk_size,
+    margin,
+    unet=None,
+    output_volume=None,
+    pipeline_cache=None,
+    use_device_pipeline=True,
+    device_flood=False,
+    flood_telemetry=False,
+    device_normalize=False,
+    profile=None,
+    devices=None,
+    **kwargs,
+):
+    """Per-volume process: chunked U-Net inference + affinity watershed.
+
+    Default fast path: the device-resident ``AffinityPipeline``; labels are
+    bit-identical to the generic ``predict_volume`` +
+    ``segment_output_image`` path (``use_device_pipeline=False``)."""
+    if unet is None:
+        raise ValueError("unet must not be None")
+    device = _single_device(devices)
+    if _affinity_pipeline_ready(unet, output_volume, use_device_pipeline):
+        if pipeline_cache is None:
+            pipeline_cache = {}
+        pipe = _pipeline(pipeline_cache, unet, chunk_size, margin,
+                         device_flood, flood_telemetry, device_normalize,
+                         device)
+        pipe.segment(input_volume, out=current_output.ravel(),
+                     profile=profile)
+        return
+    if output_volume is None:
+        raise ValueError("output_volume must not be None")
+    if device_normalize:
+        # the caller skipped host normalisation expecting the device
+        # pipeline to /max on the device: do it here (same arithmetic)
+        input_volume = input_volume.astype(np.float32)
+        input_volume = input_volume / np.max(input_volume)
+    if output_volume.shape[1:] != input_volume.shape:
+        # zero-slice removal shrank the frame
+        output_volume = np.zeros(
+            (output_volume.shape[0],) + input_volume.shape, dtype=np.float32
+        )
+    predict_volume(unet, input_volume, chunk_size=chunk_size, margin=margin,
+                   output_volume=output_volume, device=device)
+    ws.segment_output_image(
+        output_volume,
+        affinities_channels=(0, 1, 2),
+        thresholding_channel=3,
+        centroids_channel=4,
+        out=current_output.ravel(),
+        device=device,
+    )
+    output_volume[:] = 0
+
+
+def affinity_unet_watershed(
+    napari_viewer,
+    input_volume_layer,
+    save_dir: Union[str, None] = None,
+    name: str = "my-segmentation",
+    unet_or_config_file: Union[str, None] = None,
+    layer_reference=None,
+    chunk_size=(10, 256, 256),
+    margin=(1, 64, 64),
+    debug: bool = False,
+    *,
+    devices=None,
+    compute_dtype=None,
+    device_flood=None,
+    flood_telemetry=None,
+    threaded: bool = False,
+):
+    """Segment a 3D volume or 4D stack with the affinity U-Net watershed.
+
+    The JAX package's signature. Keyword-only: ``devices`` — a list of one
+    ``torch.device`` (``None``: CUDA); ``compute_dtype`` — e.g.
+    ``"bfloat16"``; ``device_flood`` — ``"pallas"`` floods on the GPU with
+    the CUDA kernel (approximate), ``False`` (default) runs the exact host
+    flood; ``flood_telemetry`` — not available yet (raises); ``threaded`` —
+    return a live :class:`SegmentationWorker` (ignored under ``debug``).
+    """
+    prep = affinity_watershed_prep_config
+    if (compute_dtype is not None or device_flood is not None
+            or flood_telemetry is not None):
+        def prep(layer, unet_or_cfg, ref, _cd=compute_dtype,
+                 _df=device_flood, _ft=flood_telemetry):
+            return affinity_watershed_prep_config(
+                layer, unet_or_cfg, ref, compute_dtype=_cd,
+                device_flood=_df, flood_telemetry=_ft,
+            )
+    return segmentation_wrapper(
+        affinity_watershed_for_chunks,
+        prep,
+        napari_viewer,
+        input_volume_layer,
+        save_dir,
+        name,
+        unet_or_config_file,
+        layer_reference,
+        chunk_size,
+        margin,
+        debug,
+        threaded=threaded,
+        devices=devices,
+    )
+
+
+def allocate_labels_store(save_path, shape, chunk_size, name,
+                          scale=None, translate=None, dtype=np.int32):
+    """The output labels store: OME-Zarr, chunked one frame / one
+    chunk-size block."""
+    layer_meta = {
+        "scale": scale if scale is not None else np.ones(len(shape)),
+        "translate": (translate if translate is not None
+                      else np.zeros(len(shape))),
+        "name": name,
+    }
+    return save_labels_to_ome(
+        str(save_path), layer_meta=layer_meta, shape=tuple(shape),
+        chunks=tuple(int(min(c, s)) for c, s in
+                     zip((1,) * (len(shape) - 3) + tuple(chunk_size),
+                         shape)),
+        dtype=dtype,
+    )
+
+
+def segmentation_wrapper(
+    processing_function: Callable,
+    config_prep_function: Callable,
+    napari_viewer,
+    input_volume_layer,
+    save_dir,
+    name,
+    network_or_config_file,
+    layer_reference,
+    chunk_size,
+    margin,
+    debug: bool = False,
+    threaded: bool = False,
+    devices=None,
+):
+    """Allocate the output label store, run the per-frame loop and (with a
+    viewer) add the result layer. ``debug=True`` skips saving."""
+    input_volume_layer = _as_layer(input_volume_layer)
+    config = config_prep_function(
+        input_volume_layer, network_or_config_file, layer_reference
+    )
+    if config is None:
+        config = {}
+    config["devices"] = [_single_device(devices)]
+
+    save_path = None
+    if save_dir is not None and not debug:
+        save_path = os.path.join(str(save_dir), name + ".ome.zarr")
+
+    data = input_volume_layer.data
+    shape = data.shape
+    scale = getattr(input_volume_layer, "scale", np.ones(len(shape)))
+    translate = getattr(input_volume_layer, "translate", np.zeros(len(shape)))
+    if save_path is not None:
+        os.makedirs(str(save_dir), exist_ok=True)
+        output_labels = allocate_labels_store(
+            save_path, shape, chunk_size, name, scale=scale,
+            translate=translate,
+        )
+    else:
+        output_labels = np.zeros(shape, dtype=np.int32)
+
+    loop = segmentation_loop(
+        napari_viewer, data, chunk_size, margin, output_labels,
+        processing_function, config,
+    )
+
+    def run():
+        for t in loop:
+            print(f"Segmented t = {t}")
+
+    def finish():
+        if napari_viewer is not None:
+            return napari_viewer.add_labels(
+                output_labels, name=name, scale=scale, translate=translate
+            )
+        return output_labels
+
+    if threaded and not debug:
+        return SegmentationWorker(run, finish)
+    run()
+    return finish()
+
+
+class SegmentationWorker:
+    """Handle to a segmentation running on a background thread.
+    ``result()`` joins and returns what the synchronous path would have (or
+    re-raises the worker's exception); ``done`` polls."""
+
+    def __init__(self, run, finish):
+        self._finish = finish
+        self._error = None
+        self._result_lock = threading.Lock()
+
+        def target():
+            try:
+                run()
+            except BaseException as e:  # re-raised in result()
+                self._error = e
+
+        self.thread = threading.Thread(target=target, daemon=True)
+        self.thread.start()
+
+    @property
+    def done(self) -> bool:
+        return not self.thread.is_alive()
+
+    def result(self, timeout=None):
+        self.thread.join(timeout)
+        if self.thread.is_alive():
+            raise TimeoutError("segmentation worker still running")
+        if self._error is not None:
+            raise self._error
+        with self._result_lock:
+            if not hasattr(self, "_result"):
+                self._result = self._finish()
+        return self._result
+
+
+def segmentation_loop(viewer, data, chunk_size, margin, output_labels,
+                      processing_function, config):
+    """Per-frame segmentation generator with warm restart: a 4D store's
+    frames that already hold labels are skipped; a 3D volume is always
+    segmented."""
+    ndim = getattr(data, "ndim", len(data.shape))
+    if ndim == 3:
+        output = segment_single_volume(
+            np.asarray(data), chunk_size, config, margin,
+            processing_function,
+        )
+        output_labels[...] = output
+        yield 0
+        return
+    if (
+        processing_function is affinity_watershed_for_chunks
+        and config.get("pipeline_cache") is not None
+        and _affinity_pipeline_ready(config.get("unet"),
+                                     config.get("output_volume"),
+                                     config.get("use_device_pipeline", True))
+    ):
+        # pipelined 4D fast path: frame t+1's device work overlaps frame
+        # t's host flood (same labels as the per-frame path)
+        device = _single_device(config.get("devices"))
+        pipe = _pipeline(config["pipeline_cache"], config["unet"],
+                         chunk_size, margin,
+                         config.get("device_flood") or False,
+                         config.get("flood_telemetry", False), device=device)
+        yield from pipe.segment_stack(data, output_labels)
+        return
+    for t in range(data.shape[0]):
+        if np.any(np.asarray(output_labels[t])):
+            continue  # warm restart: frame already segmented
+        current_output = segment_single_volume(
+            np.asarray(data[t]), chunk_size, config, margin,
+            processing_function
+        )
+        output_labels[t, ...] = current_output
+        yield t
+
+
+def segment_single_volume(input_volume, chunk_size, config, margin,
+                          processing_function):
+    """Normalise, pad the output by one voxel, process, crop. Removed
+    all-zero hyperplanes are scattered back as background. When the device
+    pipeline runs, integer volumes (itemsize <= 4) skip host normalisation
+    and upload in their source dtype; the /max then runs on the device
+    (bit-identical)."""
+    raw = np.asarray(input_volume)
+    original_shape = raw.shape
+    integer_wire = (
+        processing_function is affinity_watershed_for_chunks
+        and _affinity_pipeline_ready(config.get("unet"),
+                                     config.get("output_volume"),
+                                     config.get("use_device_pipeline", True))
+        and np.issubdtype(raw.dtype, np.integer)
+        and raw.dtype.itemsize <= 4
+    )
+    if integer_wire:
+        from .device_pipeline import _prepare_frame
+
+        input_volume, kept, _dev_norm = _prepare_frame(raw)
+        config = {**config, "device_normalize": True}
+    else:
+        input_volume, kept = prepare_volume(raw.astype(np.float32),
+                                            return_kept=True)
+    current_output = np.pad(
+        np.zeros(input_volume.shape, dtype=np.int32), 1, mode="constant",
+    )
+    crop = (slice(1, -1),) * current_output.ndim
+    processing_function(input_volume, current_output, chunk_size, margin,
+                        **config)
+    return restore_labels(current_output[crop], kept, original_shape)
+
+
+segmenters = {
+    "affinity-unet-watershed": affinity_unet_watershed,
+}

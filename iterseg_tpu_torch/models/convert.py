@@ -1,0 +1,98 @@
+"""Checkpoints into the torch U-Net: the function that carries weights across.
+
+The JAX package keeps its parameters as a flat dict whose keys are already
+torch ``state_dict`` names (``iterseg_tpu/models/convert.py``), and every
+array has the torch layout: conv weights OIDHW, the grouped transpose-conv
+weights ``(C, 1, kz, ky, kx)`` — exactly ``nn.ConvTranspose3d(C, C, k,
+stride=k, groups=C).weight`` — and BatchNorm running stats per channel. So
+``params_from_numpy`` is a 1:1 ``load_state_dict`` with a strict key check;
+``num_batches_tracked`` is synthesised, as torch expects it.
+
+Formats: ``.npz`` (native) and ``.pt``/``.pth`` (torch state dicts). Orbax
+directories need JAX and are not read by the port.
+"""
+from __future__ import annotations
+
+import os
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+from .unet import UNet, UNetSpec
+
+__all__ = [
+    "params_from_numpy",
+    "params_to_numpy",
+    "load_checkpoint",
+    "save_checkpoint",
+    "infer_spec_from_params",
+]
+
+_SKIP_SUFFIXES = ("num_batches_tracked",)
+
+
+def infer_spec_from_params(params) -> UNetSpec:
+    """Recover the UNetSpec from parameter shapes (forks + channel counts)."""
+    in_channels = params["c0.conv0.weight"].shape[1]
+    forks = []
+    i = 0
+    while f"c8_{i}.conv1.weight" in params:
+        forks.append(params[f"c8_{i}.conv1.weight"].shape[0])
+        i += 1
+    out = tuple(forks) if len(forks) > 1 else forks[0]
+    return UNetSpec(in_channels=in_channels, out_channels=out)
+
+
+def params_from_numpy(params: Mapping[str, np.ndarray],
+                      spec: UNetSpec = None) -> UNet:
+    """A CPU ``UNet`` in eval mode holding ``params`` (flat numpy arrays
+    under state-dict keys). Raises on missing or unexpected keys."""
+    spec = spec if spec is not None else infer_spec_from_params(params)
+    net = UNet(spec)
+    sd = {k: torch.from_numpy(np.array(v, dtype=np.float32, copy=True))
+          for k, v in params.items() if not k.endswith(_SKIP_SUFFIXES)}
+    for k in list(sd):
+        if k.endswith("running_var"):
+            sd[k.replace("running_var", "num_batches_tracked")] = (
+                torch.tensor(0, dtype=torch.int64))
+    net.load_state_dict(sd, strict=True)
+    return net.eval()
+
+
+def params_to_numpy(net: UNet) -> Dict[str, np.ndarray]:
+    """The flat numpy parameter dict of ``net`` (inverse of
+    ``params_from_numpy``)."""
+    return {k: v.detach().cpu().float().numpy().copy()
+            for k, v in net.state_dict().items()
+            if not k.endswith(_SKIP_SUFFIXES)}
+
+
+def load_checkpoint(path) -> Dict[str, np.ndarray]:
+    """Flat numpy params from ``.npz`` or ``.pt``/``.pth``."""
+    path = str(path)
+    if path.endswith(".npz"):
+        with np.load(path) as data:
+            return {k: np.asarray(data[k]) for k in data.files}
+    if path.endswith((".pt", ".pth")):
+        sd = torch.load(path, map_location="cpu", weights_only=True)
+        return {k: v.detach().cpu().float().numpy()
+                for k, v in sd.items() if not k.endswith(_SKIP_SUFFIXES)}
+    if os.path.isdir(path):
+        raise ValueError(
+            f"{path} is a directory: orbax checkpoints need JAX. Convert it "
+            "with `python -m iterseg_tpu convert --input <dir> --output "
+            "<file>.npz` and load the .npz")
+    raise ValueError(f"unknown checkpoint format: {path}")
+
+
+def save_checkpoint(params: Mapping[str, np.ndarray], path) -> str:
+    """Save flat params as ``.npz`` (or a torch state dict for ``.pt``)."""
+    path = str(path)
+    if path.endswith((".pt", ".pth")):
+        torch.save(params_from_numpy(params).state_dict(), path)
+        return path
+    if not path.endswith(".npz"):
+        path = path + ".npz"
+    np.savez(path, **{k: np.asarray(v) for k, v in params.items()})
+    return path

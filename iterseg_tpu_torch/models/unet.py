@@ -1,0 +1,173 @@
+"""Anisotropic 3D U-Net as a torch ``nn.Module``.
+
+The port of ``iterseg_tpu/models/unet.py``: the same architecture over the
+same flat ``state_dict`` keys (``c0.conv0.weight`` ...), so
+``iterseg_tpu/data/default_unet.npz`` and reference ``.pt`` checkpoints load
+unchanged. Invariants kept exactly:
+
+- four MaxPool3d stages with stride (1,2,2) and padding (0,1,1) — the
+  256→129→65→33→17 ladder — with the bottom pool forced to (2,2,2);
+- encoder channels 1→32→64→128→256→256; decoder 512→128, 256→64, 128→32,
+  64→out, sigmoid heads by default;
+- grouped ConvTranspose3d upsampling with kernel == stride, evaluated as the
+  exact broadcast product the JAX model uses (one multiply and one add per
+  output, no reduction);
+- the decoder crops ``[..., :-1, :-1]`` and ``[..., 1:-1, 1:-1]``;
+- any number of decoder forks sharing one encoder;
+- eval BatchNorm folded to ``x * scale + shift`` exactly as the JAX model
+  computes it (train-mode BatchNorm is the training slice's).
+
+The convolutions are ``torch.nn.functional.conv3d`` (cuDNN on the GPU); the
+JAX package runs them as XLA, not Pallas, so they are not kernels to port.
+Run the f32 forward inside ``device.f32_numerics()``.
+"""
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple, Union
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+DOWN_FACTORS = (1, 2, 2)
+NEW_DOWN = (2, 2, 2)
+ENCODER_CHANNELS = (32, 64, 128, 256, 256)
+DECODER_IN_OUT = ((512, 128), (256, 64), (128, 32))
+BN_EPS = 1e-5
+
+__all__ = ["UNetSpec", "ConvModule", "UNet"]
+
+
+class UNetSpec:
+    """Static configuration of the network (forks, channels, heads)."""
+
+    def __init__(
+        self,
+        in_channels: int = 1,
+        out_channels: Union[int, Tuple[int, ...]] = 5,
+        chan_final_activations: Optional[Sequence[str]] = None,
+    ):
+        self.in_channels = in_channels
+        self.forked = isinstance(out_channels, (tuple, list))
+        self.out_channels = (
+            tuple(out_channels) if self.forked else (out_channels,)
+        )
+        if chan_final_activations is None:
+            self.finals = tuple("sigmoid" for _ in self.out_channels)
+        else:
+            self.finals = tuple(chan_final_activations)
+
+    def __eq__(self, other):
+        return (isinstance(other, UNetSpec)
+                and (self.in_channels, self.out_channels, self.finals,
+                     self.forked)
+                == (other.in_channels, other.out_channels, other.finals,
+                    other.forked))
+
+    def __hash__(self):
+        return hash((self.in_channels, self.out_channels, self.finals,
+                     self.forked))
+
+    @property
+    def total_out(self):
+        return sum(self.out_channels)
+
+
+def _final_activation(x, kind):
+    if kind == "relu":
+        return torch.relu(x)
+    if kind == "softmax":
+        return torch.softmax(x, dim=1)
+    if kind == "sigmoid":
+        return torch.sigmoid(x)
+    if kind == "tanh":
+        return torch.tanh(x)
+    raise ValueError(f"unknown final activation {kind!r}")
+
+
+def _bn_eval(x, bn: nn.BatchNorm3d):
+    """Eval BatchNorm in the JAX model's folded form (same rounding)."""
+    inv = torch.rsqrt(bn.running_var.float() + BN_EPS)
+    scale = (bn.weight * inv).to(x.dtype).reshape(1, -1, 1, 1, 1)
+    shift = (bn.bias - bn.running_mean * bn.weight * inv).to(x.dtype)
+    return x * scale + shift.reshape(1, -1, 1, 1, 1)
+
+
+class ConvModule(nn.Module):
+    """(conv3d → BN → ReLU) × 2 with a configurable final activation."""
+
+    def __init__(self, cin, cout, final="relu"):
+        super().__init__()
+        self.conv0 = nn.Conv3d(cin, cout, 3, 1, 1)
+        self.conv1 = nn.Conv3d(cout, cout, 3, 1, 1)
+        self.batch0 = nn.BatchNorm3d(cout)
+        self.batch1 = nn.BatchNorm3d(cout)
+        self.final = final
+
+    def forward(self, x):
+        x = torch.relu(_bn_eval(self.conv0(x), self.batch0))
+        x = _bn_eval(self.conv1(x), self.batch1)
+        return _final_activation(x, self.final)
+
+
+def _upsample(x, up: nn.ConvTranspose3d, factors):
+    """Depthwise ConvTranspose3d with kernel == stride == factors:
+    out[n,c,z*fz+dz,y*fy+dy,x*fx+dx] = x[n,c,z,y,x]*w[c,0,dz,dy,dx] + b."""
+    n, c, z, y, xx = x.shape
+    fz, fy, fx = factors
+    wk = up.weight.reshape(1, c, 1, fz, 1, fy, 1, fx).to(x.dtype)
+    out = (x.reshape(n, c, z, 1, y, 1, xx, 1) * wk).reshape(
+        n, c, z * fz, y * fy, xx * fx)
+    return out + up.bias.reshape(1, -1, 1, 1, 1).to(x.dtype)
+
+
+class UNet(nn.Module):
+    """The iterseg U-Net (ForkedUNet when ``spec.forked``). NCZYX in and
+    out; inference (eval BatchNorm) only."""
+
+    def __init__(self, spec: Optional[UNetSpec] = None):
+        super().__init__()
+        self.spec = spec if spec is not None else UNetSpec()
+        cin = self.spec.in_channels
+        for i, cout in enumerate(ENCODER_CHANNELS):
+            setattr(self, f"c{i}", ConvModule(cin, cout))
+            cin = cout
+        for i, c in enumerate(self.spec.out_channels):
+            for j, (dec_in, dec_out) in enumerate(DECODER_IN_OUT):
+                setattr(self, f"c{5 + j}_{i}", ConvModule(dec_in, dec_out))
+            setattr(self, f"c8_{i}",
+                    ConvModule(64, c, final=self.spec.finals[i]))
+        for name, c, k in (("up0", 256, NEW_DOWN), ("up1", 128, DOWN_FACTORS),
+                           ("up2", 64, DOWN_FACTORS),
+                           ("up3", 32, DOWN_FACTORS)):
+            setattr(self, name, nn.ConvTranspose3d(c, c, k, stride=k,
+                                                   groups=c))
+        self.eval()
+
+    @staticmethod
+    def _pool(x, factors):
+        return F.max_pool3d(x, factors, factors, padding=(0, 1, 1))
+
+    def encode(self, x):
+        c0 = self.c0(x)
+        c1 = self.c1(self._pool(c0, DOWN_FACTORS))
+        c2 = self.c2(self._pool(c1, DOWN_FACTORS))
+        c3 = self.c3(self._pool(c2, DOWN_FACTORS))
+        x = self.c4(self._pool(c3, NEW_DOWN))
+        return x, c0, c1, c2, c3
+
+    def decode(self, x, c0, c1, c2, c3, i=0):
+        x = _upsample(x, self.up0, NEW_DOWN)[:, :, :, :-1, :-1]
+        x = getattr(self, f"c5_{i}")(torch.cat([x, c3], 1))
+        x = _upsample(x, self.up1, DOWN_FACTORS)[:, :, :, :-1, :-1]
+        x = getattr(self, f"c6_{i}")(torch.cat([x, c2], 1))
+        x = _upsample(x, self.up2, DOWN_FACTORS)[:, :, :, :-1, :-1]
+        x = getattr(self, f"c7_{i}")(torch.cat([x, c1], 1))
+        x = _upsample(x, self.up3, DOWN_FACTORS)[:, :, :, 1:-1, 1:-1]
+        return getattr(self, f"c8_{i}")(torch.cat([x, c0], 1))
+
+    def forward(self, x):
+        enc, c0, c1, c2, c3 = self.encode(x)
+        outs = [self.decode(enc, c0, c1, c2, c3, i)
+                for i in range(len(self.spec.out_channels))]
+        return outs[0] if len(outs) == 1 else torch.cat(outs, 1)

@@ -1,0 +1,171 @@
+"""The claim-mode wavefront affinity flood in plain torch — the readable spec
+of the flood rule that ``ops/flood_kernel.py``'s CUDA kernel runs.
+
+The port of ``iterseg_tpu/ops/device_flood.py``'s ``mode="claim"``
+recurrence (``hop_ties=False``), an approximation of the sequential heap
+flood (claim-at-push, reference ``watershed.py:95-159``):
+
+- Each free voxel ``u`` (in the mask, not a seed) looks at its 6 face
+  neighbours ``v`` that carry a label and picks the one with the smallest
+  key ``(d_v, idx_v)``: virtual time first, then the row-major ravel index
+  of the voxel (any row-major embedding orders voxels the same way, so the
+  JAX recurrence's index, the Pallas kernel's guard-geometry index and this
+  one agree on every tie).
+- ``u`` claims only if that key is strictly below the claimant key
+  ``(ckd_u, cki_u)`` it last claimed with; then ``d_u = max(d_v, w_uv)``,
+  ``lab_u = lab_v`` and the claimant key is stored. The edge weight
+  ``w_uv`` crossing between ``p`` and ``p + e_a`` is ``aff[a, p + e_a]``:
+  entering ``u`` from ``u - e_a`` it is ``aff[a, u]``, from ``u + e_a`` it
+  is ``aff[a, u + e_a]``.
+- Seeds start at ``d = 0`` with claimant key ``-inf`` and never change;
+  voxels outside the mask never carry a label.
+
+Every step updates every voxel at once (Jacobi), so the recurrence is
+deterministic; the per-voxel key only decreases over a finite set, so it
+terminates. Its fixed point equals JAX ``wavefront_flood_jit(mode="claim")``
+bit for bit.
+
+The state lives on padded arrays (one voxel of ring: ``d = inf``,
+``lab = 0``), so a step reads its neighbours as slices; ``_claim_step``
+also serves the tile-local relaxation of ``flood_kernel``'s plain version,
+where leading dimensions index tiles.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+__all__ = ["init_state", "edge_weights", "wavefront_flood",
+           "wavefront_affinity_flood"]
+
+_INF = float("inf")
+
+
+def init_state(seeds: torch.Tensor, mask: torch.Tensor):
+    """``(d, lab, ckd, cki, code)`` of the flood's start; code is uint8
+    (0 outside the mask, 1 free, 2 seed)."""
+    mask = mask.to(torch.bool)
+    lab = torch.where(mask, seeds.to(torch.int32), 0).to(torch.int32)
+    seeded = lab > 0
+    d = torch.where(seeded, 0.0, _INF).to(torch.float32)
+    ckd = torch.where(seeded, -_INF, _INF).to(torch.float32)
+    cki = torch.zeros_like(lab)
+    code = torch.where(seeded, 2, mask.to(torch.uint8)).to(torch.uint8)
+    return d, lab, ckd, cki, code
+
+
+def edge_weights(aff: torch.Tensor):
+    """The six weights entering each voxel, direction order (z-, z+, y-,
+    y+, x-, x+): ``aff[a]`` from ``u - e_a``, ``aff[a]`` shifted down by
+    one along ``a`` (``inf`` past the edge) from ``u + e_a``."""
+    out = []
+    for a in range(3):
+        w = aff[a]
+        nxt = torch.full_like(w, _INF)
+        dst = [slice(None)] * 3
+        src = [slice(None)] * 3
+        dst[a] = slice(0, -1)
+        src[a] = slice(1, None)
+        nxt[tuple(dst)] = w[tuple(src)]
+        out += [w, nxt]
+    return torch.stack(out)
+
+
+def neighbour_index(shape, device):
+    """``idx_u`` (int32 row-major ravel) and the per-direction offsets
+    ``(-YX, +YX, -X, +X, -1, +1)``."""
+    Z, Y, X = shape
+    idx = torch.arange(Z * Y * X, dtype=torch.int32,
+                       device=device).reshape(Z, Y, X)
+    offs = (-Y * X, Y * X, -X, X, -1, 1)
+    return idx, offs
+
+
+def pad_ring(x: torch.Tensor, fill, dims=3):
+    """``x`` with a one-voxel ring of ``fill`` on its last ``dims`` axes."""
+    shape = x.shape[:-dims] + tuple(s + 2 for s in x.shape[-dims:])
+    out = torch.full(shape, fill, dtype=x.dtype, device=x.device)
+    out[(..., ) + (slice(1, -1),) * dims] = x
+    return out
+
+
+_NBR = (  # neighbour slices of the padded arrays, direction order
+    (slice(0, -2), slice(1, -1), slice(1, -1)),   # z-
+    (slice(2, None), slice(1, -1), slice(1, -1)),  # z+
+    (slice(1, -1), slice(0, -2), slice(1, -1)),   # y-
+    (slice(1, -1), slice(2, None), slice(1, -1)),  # y+
+    (slice(1, -1), slice(1, -1), slice(0, -2)),   # x-
+    (slice(1, -1), slice(1, -1), slice(2, None)),  # x+
+)
+_INTERIOR = (Ellipsis, slice(1, -1), slice(1, -1), slice(1, -1))
+
+
+def _claim_step(d_pad, lab_pad, ckd, cki, weights, idx, offs, free):
+    """One synchronous claim update of the interior of padded state
+    ``(d_pad, lab_pad)`` (…, a+2, b+2, c+2); ``ckd``, ``cki``, ``idx``,
+    ``free`` and ``weights[k]`` have the interior's shape. Returns the new
+    interior ``(d, lab, ckd, cki)`` and the claim mask."""
+    best_kd = torch.full_like(ckd, _INF)
+    best_ki = torch.zeros_like(cki)
+    best_lab = torch.zeros_like(cki)
+    best_w = torch.zeros_like(ckd)
+    for k, sl in enumerate(_NBR):
+        d_v = d_pad[(Ellipsis,) + sl]
+        lab_v = lab_pad[(Ellipsis,) + sl]
+        idx_v = idx + offs[k]
+        better = (lab_v > 0) & (
+            (d_v < best_kd) | ((d_v == best_kd) & (idx_v < best_ki)))
+        best_kd = torch.where(better, d_v, best_kd)
+        best_ki = torch.where(better, idx_v, best_ki)
+        best_w = torch.where(better, weights[k], best_w)
+        best_lab = torch.where(better, lab_v, best_lab)
+    claim = ((best_kd < ckd) | ((best_kd == ckd) & (best_ki < cki))) & free
+    d_new = torch.where(claim, torch.maximum(best_kd, best_w),
+                        d_pad[_INTERIOR])
+    lab_new = torch.where(claim, best_lab, lab_pad[_INTERIOR])
+    return (d_new, lab_new, torch.where(claim, best_kd, ckd),
+            torch.where(claim, best_ki, cki), claim)
+
+
+def wavefront_flood(affinities: torch.Tensor, seeds: torch.Tensor,
+                    mask: torch.Tensor, max_iters: int = 512):
+    """The synchronous claim recurrence on the tensors' device.
+
+    ``affinities`` (3, Z, Y, X) float, ``seeds`` (Z, Y, X) int (0 =
+    unseeded), ``mask`` (Z, Y, X) bool. Returns ``(labels int32, n_iters,
+    converged)``: ``n_iters`` counts the steps up to and including the
+    first step that claims nothing (``converged``), or ``max_iters``."""
+    aff = affinities.to(torch.float32)
+    d, lab, ckd, cki, code = init_state(seeds, mask)
+    weights = edge_weights(aff)
+    idx, offs = neighbour_index(mask.shape, aff.device)
+    free = code == 1
+    d_pad, lab_pad = pad_ring(d, _INF), pad_ring(lab, 0)
+    for it in range(1, max_iters + 1):
+        d, lab, ckd, cki, claim = _claim_step(d_pad, lab_pad, ckd, cki,
+                                              weights, idx, offs, free)
+        if not bool(claim.any()):
+            return lab, it, True
+        d_pad[_INTERIOR] = d
+        lab_pad[_INTERIOR] = lab
+    return lab_pad[_INTERIOR].clone(), max_iters, False
+
+
+def wavefront_affinity_flood(affinities, marker_coords, mask, max_iters=512,
+                             device=None):
+    """NumPy-facing wrapper with the oracle's calling convention: seeds
+    take labels 1..n in row order. Returns ``(labels int32, n_iters,
+    converged)``."""
+    from ..device import resolve_device
+
+    dev = resolve_device(device)
+    mask = np.asarray(mask).astype(bool)
+    seeds = np.zeros(mask.shape, np.int32)
+    mc = np.asarray(marker_coords)
+    if len(mc):
+        seeds[tuple(mc.T)] = np.arange(1, len(mc) + 1, dtype=np.int32)
+    lab, it, conv = wavefront_flood(
+        torch.as_tensor(np.asarray(affinities, np.float32), device=dev),
+        torch.as_tensor(seeds, device=dev), torch.as_tensor(mask, device=dev),
+        max_iters=max_iters)
+    return lab.cpu().numpy(), it, conv

@@ -1,0 +1,248 @@
+"""The seeded affinity flood on Hopper: a hand-written CUDA kernel, its
+plain torch version, and the wrapper that picks between them.
+
+Replaces the TPU kernel ``iterseg_tpu/ops/pallas_flood.py:_flood_kernel``
+(``_sweep_call`` / ``pallas_flood_jit``). The source is
+``iterseg_tpu_torch/csrc/affinity_flood.cu``; its header note gives the
+flood rule, the tie order and the schedule. In short: the state is
+double-buffered, one CTA relaxes one (4, 8, 32) tile with a frozen 1-voxel
+halo for up to ``inner_cap`` Jacobi steps, and the host relaunches until no
+voxel claims. Unlike the Pallas kernel's in-order Gauss-Seidel sweep, every
+launch is deterministic, so the kernel is held bit-equal to its plain
+version; with ``inner_cap=1`` both equal the synchronous claim recurrence
+(``ops/device_flood``) and JAX ``wavefront_flood_jit(mode="claim")``.
+
+What bounds it on the H100: memory. A launch reads about 7 state words and
+3 affinities per voxel and writes 4 (``BYTES_PER_VOXEL_LAUNCH``), so its
+floor is that traffic over the 3.35 TB/s of HBM3, times the launches the
+data needs. The design keeps d and lab in a shared-memory tile (each word
+loaded once per CTA, not once per neighbour), the rest of a voxel's state in
+registers, and never rewrites voxels that cannot change.
+
+Build: ``nvcc -gencode arch=compute_90a,code=sm_90a`` into a plain C
+library (``_build.build_dir``), at first use, loaded with ``ctypes``. The
+wrapper ``affinity_flood`` takes the plain version only for CPU tensors; a
+CUDA tensor launches the kernel or raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import os
+import subprocess
+import threading
+
+import torch
+
+from .device_flood import (_INTERIOR, _claim_step, edge_weights, init_state,
+                           neighbour_index, pad_ring, wavefront_flood)
+
+__all__ = ["affinity_flood", "affinity_flood_plain", "build", "launches",
+           "reset_launches", "TILE", "BYTES_PER_VOXEL_LAUNCH",
+           "OPS_PER_FREE_VOXEL_STEP"]
+
+TILE = (4, 8, 32)  # (TZ, TY, TX): must match csrc/affinity_flood.cu
+# words the kernel's schedule moves per voxel and launch: 7 of state read,
+# the 3 affinities, 4 of state written
+BYTES_PER_VOXEL_LAUNCH = (7 + 3 + 4) * 4
+# compares, selects and the max of one claim step of one free voxel: six
+# neighbours at ~11 each, plus the claim test and the update
+OPS_PER_FREE_VOXEL_STEP = 72
+_SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "csrc", "affinity_flood.cu")
+_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+               "-O3", "-shared", "-Xcompiler", "-fPIC"]
+# launches queued between reads of the convergence flags
+_CHECK_EVERY = 8
+_LOCK = threading.Lock()
+_lib = None
+_launches = 0
+_INF = float("inf")
+
+
+def launches() -> int:
+    """Kernel launches made by ``affinity_flood`` since the last reset."""
+    return _launches
+
+
+def reset_launches():
+    global _launches
+    _launches = 0
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(cuda_home, "bin", "nvcc")
+    return path if os.path.exists(path) else "nvcc"
+
+
+def build():
+    """Compile (once per source version) and load the kernel library;
+    returns the ``ctypes`` handle. Raises ``RuntimeError`` with the
+    compiler's output when the build fails."""
+    global _lib
+    from .._build import build_library
+
+    with _LOCK:
+        if _lib is not None:
+            return _lib
+        try:
+            path = build_library(_SRC, "affinity_flood",
+                                 [_nvcc()] + _NVCC_FLAGS)
+        except subprocess.CalledProcessError as e:
+            raise RuntimeError(
+                f"nvcc failed to build {_SRC}:\n{e.stdout}\n{e.stderr}"
+            ) from e
+        lib = ctypes.CDLL(path)
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.affinity_flood_launch.restype = ci
+        lib.affinity_flood_launch.argtypes = [vp] * 10 + [ci] * 4 + [vp, ci,
+                                                                     vp]
+        lib.affinity_flood_tile.restype = None
+        lib.affinity_flood_tile.argtypes = [ctypes.POINTER(ci)] * 3
+        t = [ci(), ci(), ci()]
+        lib.affinity_flood_tile(*[ctypes.byref(v) for v in t])
+        if tuple(v.value for v in t) != TILE:
+            raise RuntimeError(f"kernel tile {[v.value for v in t]} != {TILE}")
+        _lib = lib
+        return _lib
+
+
+def _check(aff, seeds, mask, inner_cap, max_launches):
+    if aff.ndim != 4 or aff.shape[0] != 3:
+        raise ValueError(f"affinities must be (3, Z, Y, X), got "
+                         f"{tuple(aff.shape)}")
+    if tuple(seeds.shape) != tuple(aff.shape[1:]) or tuple(
+            mask.shape) != tuple(aff.shape[1:]):
+        raise ValueError("seeds and mask must have the affinities' (Z, Y, X)")
+    if aff.dtype != torch.float32 or seeds.dtype != torch.int32 or (
+            mask.dtype != torch.bool):
+        raise TypeError("affinities float32, seeds int32 and mask bool "
+                        f"required, got {aff.dtype}, {seeds.dtype}, "
+                        f"{mask.dtype}")
+    if not (aff.device == seeds.device == mask.device):
+        raise ValueError("affinities, seeds and mask must share a device")
+    if inner_cap < 1 or max_launches < 1:
+        raise ValueError(f"inner_cap and max_launches must be >= 1, got "
+                         f"{inner_cap}, {max_launches}")
+    if aff[0].numel() >= 2 ** 31:
+        raise ValueError("volumes of 2^31 voxels or more are not supported")
+
+
+def affinity_flood_plain(affinities, seeds, mask, max_launches=512,
+                         inner_cap=1):
+    """The kernel's function and schedule in plain torch, on any device.
+
+    ``inner_cap=1`` is the synchronous claim recurrence. For ``inner_cap >
+    1`` each launch unfolds the state into the kernel's tiles with a frozen
+    1-voxel halo, runs ``inner_cap`` claim steps on every tile's interior
+    and folds the interiors back (steps after a tile stops claiming change
+    nothing, so this equals the kernel's early exit). Returns ``(labels
+    int32, n_launches, converged)`` as ``affinity_flood`` does."""
+    _check(affinities, seeds, mask, inner_cap, max_launches)
+    if inner_cap == 1:
+        return wavefront_flood(affinities, seeds, mask, max_iters=max_launches)
+    Z, Y, X = mask.shape
+    tz, ty, tx = TILE
+    nz, ny, nx = -(-Z // tz), -(-Y // ty), -(-X // tx)
+    grid = (nz * tz, ny * ty, nx * tx)
+    d, lab, ckd, cki, code = init_state(seeds, mask)
+    weights = edge_weights(affinities)
+    idx, offs = neighbour_index(mask.shape, affinities.device)
+
+    def to_grid(x, fill):  # (..., Z, Y, X) -> (..., grid) padded with fill
+        out = torch.full(x.shape[:-3] + grid, fill, dtype=x.dtype,
+                         device=x.device)
+        out[..., :Z, :Y, :X] = x
+        return out
+
+    def tiles(x):  # (..., grid) -> (..., nz, ny, nx, tz, ty, tx)
+        lead = x.shape[:-3]
+        x = x.reshape(lead + (nz, tz, ny, ty, nx, tx))
+        k = len(lead)
+        return x.permute(*range(k), k, k + 2, k + 4, k + 1, k + 3, k + 5)
+
+    def untile(x):  # inverse of tiles for a tensor without leading axes
+        return x.permute(0, 3, 1, 4, 2, 5).reshape(grid)
+
+    def halo_tiles(x_pad):  # (grid + 2) -> (nz, ny, nx, tz+2, ty+2, tx+2)
+        return (x_pad.unfold(0, tz + 2, tz).unfold(1, ty + 2, ty)
+                .unfold(2, tx + 2, tx))
+
+    w_t = tiles(to_grid(weights, _INF))
+    w_t = [w_t[k] for k in range(6)]
+    idx_t = tiles(to_grid(idx, 0))
+    free_t = tiles(to_grid(code == 1, False))
+    d_pad = pad_ring(to_grid(d, _INF), _INF)
+    lab_pad = pad_ring(to_grid(lab, 0), 0)
+    ckd_t = tiles(to_grid(ckd, _INF))
+    cki_t = tiles(to_grid(cki, 0))
+    for launch in range(1, max_launches + 1):
+        d_h = halo_tiles(d_pad).clone()
+        lab_h = halo_tiles(lab_pad).clone()
+        changed = False
+        for _ in range(inner_cap):
+            d_i, lab_i, ckd_t, cki_t, claim = _claim_step(
+                d_h, lab_h, ckd_t, cki_t, w_t, idx_t, offs, free_t)
+            d_h[_INTERIOR] = d_i
+            lab_h[_INTERIOR] = lab_i
+            changed = changed or bool(claim.any())
+        if not changed:
+            return lab_pad[_INTERIOR][:Z, :Y, :X].contiguous(), launch, True
+        d_pad[_INTERIOR] = untile(d_h[_INTERIOR])
+        lab_pad[_INTERIOR] = untile(lab_h[_INTERIOR])
+    return (lab_pad[_INTERIOR][:Z, :Y, :X].contiguous(), max_launches,
+            False)
+
+
+def affinity_flood(affinities, seeds, mask, max_launches=512, inner_cap=1):
+    """Seeded affinity flood: ``affinities`` (3, Z, Y, X) float32,
+    ``seeds`` (Z, Y, X) int32 (0 = unseeded), ``mask`` (Z, Y, X) bool, all
+    on one device. Returns ``(labels int32 (Z, Y, X), n_launches,
+    converged)``: ``n_launches`` counts launches up to and including the
+    first that claimed nothing, or ``max_launches`` when none did
+    (``converged=False``; the caller then takes the exact host flood).
+
+    CPU tensors run ``affinity_flood_plain``; CUDA tensors launch the kernel
+    on the current stream, reading the convergence flags every
+    ``_CHECK_EVERY`` launches."""
+    global _launches
+    if affinities.device.type == "cpu":
+        return affinity_flood_plain(affinities, seeds, mask, max_launches,
+                                    inner_cap)
+    if affinities.device.type != "cuda":
+        raise ValueError(f"unsupported device {affinities.device}")
+    _check(affinities, seeds, mask, inner_cap, max_launches)
+    lib = build()
+    aff = affinities.contiguous()
+    Z, Y, X = mask.shape
+    with torch.cuda.device(aff.device):
+        d, lab, ckd, cki, code = init_state(seeds.contiguous(),
+                                            mask.contiguous())
+        bufs = [(d, lab, ckd, cki),
+                (d.clone(), lab.clone(), ckd.clone(), cki.clone())]
+        flags = torch.zeros(max_launches + 1, dtype=torch.int32,
+                            device=aff.device)
+        flags[0] = 1
+        stream = torch.cuda.current_stream(aff.device).cuda_stream
+        done = 0
+        while done < max_launches:
+            k = min(_CHECK_EVERY, max_launches - done)
+            for launch in range(done + 1, done + k + 1):
+                src, dst = bufs[(launch - 1) % 2], bufs[launch % 2]
+                err = lib.affinity_flood_launch(
+                    *[t.data_ptr() for t in src + dst], code.data_ptr(),
+                    aff.data_ptr(), Z, Y, X, inner_cap, flags.data_ptr(),
+                    launch, stream)
+                if err:
+                    raise RuntimeError(
+                        f"affinity_flood kernel launch failed: CUDA error "
+                        f"{err}")
+                _launches += 1
+            first = done + 1
+            done += k
+            still = flags[first:done + 1].cpu()
+            idle = (still == 0).nonzero()
+            if len(idle):
+                n = first + int(idle[0])
+                return bufs[n % 2][1], n, True
+        return bufs[max_launches % 2][1], max_launches, False

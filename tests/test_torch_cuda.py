@@ -1,0 +1,102 @@
+"""Tests of the port that need a CUDA card: the hand-written kernels have no
+CPU mode. Every test carries the ``cuda`` marker and skips without a card.
+This file imports neither JAX nor ``iterseg_tpu``, so it also runs on a GPU
+machine that has only torch:
+
+    python -m pytest tests/test_torch_cuda.py -m cuda
+"""
+import numpy as np
+import pytest
+import torch
+from scipy import ndimage as ndi
+
+from iterseg_tpu_torch.ops import flood_kernel as fk
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+def noise_case(shape=(12, 20, 20), n_seeds=6, seed=0):
+    """White-noise affinities, a full interior mask, random seeds."""
+    r = np.random.default_rng(seed)
+    aff = r.random((3,) + shape).astype(np.float32)
+    mask = np.pad(np.ones([s - 2 for s in shape], bool), 1)
+    coords = np.unique(np.stack(
+        [r.integers(2, s - 2, size=n_seeds) for s in shape], axis=1), axis=0)
+    return aff, coords, mask
+
+
+def smooth_case(shape=(16, 40, 40), n=20, seed=0):
+    """Smooth affinities with ridges at object boundaries, seeds at peaks."""
+    r = np.random.default_rng(seed)
+    vol = np.zeros(shape, np.float32)
+    pts = np.stack([r.integers(3, s - 3, size=n) for s in shape], 1)
+    vol[tuple(pts.T)] = 1.0
+    vol = ndi.gaussian_filter(vol, (1.5, 3, 3))
+    vol /= vol.max()
+    aff = np.stack([1.0 - vol] * 3).astype(np.float32)
+    mask = np.pad(vol[1:-1, 1:-1, 1:-1] > 0.08, 1)
+    seeds = np.argwhere((vol == ndi.maximum_filter(vol, size=5)) & mask)
+    return aff, seeds, mask
+
+
+def as_inputs(aff, coords, mask, device):
+    seeds = np.zeros(mask.shape, np.int32)
+    seeds[tuple(coords.T)] = np.arange(1, len(coords) + 1, dtype=np.int32)
+    return tuple(torch.from_numpy(x).to(device) for x in (aff, seeds, mask))
+
+
+@pytest.mark.parametrize("inner_cap", [1, 4])
+@pytest.mark.parametrize("case", [noise_case, smooth_case])
+def test_kernel_equals_plain(cuda, case, inner_cap):
+    inputs = as_inputs(*case(), device=cuda)
+    before = fk.launches()
+    got, n, conv = fk.affinity_flood(*inputs, inner_cap=inner_cap)
+    want, n_plain, conv_plain = fk.affinity_flood_plain(
+        *inputs, inner_cap=inner_cap)
+    torch.cuda.synchronize()
+    assert fk.launches() > before
+    assert conv and conv_plain and n == n_plain
+    assert torch.equal(got, want)
+
+
+def test_kernel_ragged_shape_and_non_convergence(cuda, monkeypatch):
+    # a shape that is no multiple of the (4, 8, 32) tile on any axis, and
+    # flag reads that do not fall on the converging launch
+    monkeypatch.setattr(fk, "_CHECK_EVERY", 3)
+    inputs = as_inputs(*smooth_case(shape=(13, 37, 45), seed=2), device=cuda)
+    got, n, conv = fk.affinity_flood(*inputs)
+    want, n_plain, _ = fk.affinity_flood_plain(*inputs)
+    assert conv and n == n_plain and torch.equal(got, want)
+    part, n2, conv2 = fk.affinity_flood(*inputs, max_launches=2)
+    plain2, _, _ = fk.affinity_flood_plain(*inputs, max_launches=2)
+    assert n2 == 2 and not conv2 and torch.equal(part, plain2)
+
+
+def test_fast_path_equals_generic_on_card(cuda):
+    from iterseg_tpu_torch.engine.device_pipeline import AffinityPipeline
+    from iterseg_tpu_torch.engine.predict import load_unet, predict_volume
+    from iterseg_tpu_torch.ops.watershed import segment_output_image
+
+    r = np.random.default_rng(0)
+    vol = np.zeros((10, 96, 96), np.float32)
+    pts = np.stack([r.integers(1, s - 1, size=30) for s in vol.shape], 1)
+    vol[tuple(pts.T)] = 1.0
+    vol = ndi.gaussian_filter(vol, (1, 3, 3))
+    vol /= vol.max()
+    model = load_unet(None)
+    chunk, margin = (10, 64, 64), (1, 16, 16)
+    fast = AffinityPipeline(model, chunk, margin).segment(vol)
+    feats = predict_volume(model, vol, chunk, margin)
+    generic, _, _ = segment_output_image(feats, (0, 1, 2), 4, 3)
+    np.testing.assert_array_equal(fast, generic)
+    pallas = AffinityPipeline(model, chunk, margin,
+                              device_flood="pallas").segment(vol)
+    np.testing.assert_array_equal(pallas > 0, fast > 0)
+    assert set(np.unique(pallas)) == set(np.unique(fast))
