@@ -7,12 +7,13 @@ Run from the root of a checkout, on a machine with one CUDA card, the CUDA
 toolkit (``nvcc``) and ``g++``. It imports nothing of JAX or of
 ``iterseg_tpu``. Phases, each printing one JSON line:
 
-1. the card (``nvidia-smi`` name and power limit) and the build: the CUDA
-   flood kernel (``nvcc``, sm_90a) and the host C++ flood (``g++``), built
-   together into ``build/iterseg_tpu_torch``;
-2. kernel vs plain: the CUDA flood and its plain torch version on a seeded
-   smooth (33, 256, 256) fixture, ``inner_cap`` 1 and 4 — labels equal bit
-   for bit, the same launch count, converged;
+1. the card (``nvidia-smi`` name and power limit) and the build: the two
+   CUDA flood kernels (``nvcc``, sm_90a) and the host C++ floods (``g++``),
+   all started together, into ``build/iterseg_tpu_torch``;
+2. kernel vs plain: the CUDA affinity flood and its plain torch version on a
+   seeded smooth (33, 256, 256) fixture, and the CUDA image flood and its
+   plain version on a seeded −EDT (33, 256, 256) fixture, ``inner_cap`` 1
+   and 4 — labels equal bit for bit, the same launch count, converged;
 3. forward parity: one (10, 256, 256) chunk through the full-width U-Net
    (``iterseg_tpu/data/default_unet.npz``, ~10.0 M parameters) on the card
    with TF32 off and on the CPU, max-abs <= 5e-4;
@@ -23,9 +24,18 @@ toolkit (``nvcc``) and ``g++``. It imports nothing of JAX or of
    sets, agreement >= 0.9; plus the fast path against the generic
    ``predict_volume`` + ``segment_output_image`` path, bit-equal;
 5. a (2, 33, 256, 256) stack through ``segment_stack``: every frame labelled;
-6. the ``kernels`` line: each hand-written kernel timed on the inputs the
-   main path gave it, against its plain version, with its launches on the
-   main path and its memory bound.
+6. the DoG path on the same (33, 512, 512) uint16 volume through
+   ``dog_blob_watershed`` with ``device_flood=False`` (exact host bucket
+   flood) and ``"pallas"`` (the CUDA image flood): the image kernel
+   launched, no flood fell back, no warning, the native library loaded,
+   equal label support and id sets, agreement >= 0.9; plus, on a (33, 256,
+   256) float volume, the card's ``DoGPipeline`` against the host path and
+   against the port's own CPU run, bit-equal;
+7. a (2, 33, 256, 256) stack through ``dog_blob_watershed``: every frame
+   labelled;
+8. the ``kernels`` line: each hand-written kernel timed on the inputs its
+   path gave it, against its plain version, with its launches on its path
+   and its bound.
 
 Then the card's name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -95,6 +105,27 @@ def blob_volume(shape, n, seed):
     return vol.astype(np.uint16)
 
 
+def edt_fixture(shape, n, seed):
+    """Seeded blobs -> mask, values = -EDT, labelled markers at the
+    distance peaks: the image flood's input class on the DoG path."""
+    import numpy as np
+    from scipy import ndimage as ndi
+
+    r = np.random.default_rng(seed)
+    vol = np.zeros(shape, np.float32)
+    pts = np.stack([r.integers(3, s - 3, size=n) for s in shape], 1)
+    vol[tuple(pts.T)] = 1.0
+    vol = ndi.gaussian_filter(vol, (1.5, 4, 4))
+    vol /= vol.max()
+    mask = vol > 0.15
+    dist = ndi.distance_transform_edt(mask)
+    peaks = np.argwhere((dist == ndi.maximum_filter(dist, size=3)) & mask)
+    markers = np.zeros(shape, np.int32)
+    markers[tuple(peaks.T)] = 1
+    markers, _ = ndi.label(markers)
+    return (-dist).astype(np.float32), markers.astype(np.int32), mask
+
+
 def cuda_ms(fn, reps=3):
     """Mean time of ``fn()`` in ms over ``reps`` runs after one warm-up,
     by CUDA events."""
@@ -125,24 +156,33 @@ def main():
     from iterseg_tpu_torch.device import f32_numerics
     from iterseg_tpu_torch.engine import device_pipeline as dp
     from iterseg_tpu_torch.engine.predict import load_unet, predict_volume
-    from iterseg_tpu_torch.engine.segmentation import affinity_unet_watershed
+    from iterseg_tpu_torch.engine.segmentation import (
+        affinity_unet_watershed, dog_blob_watershed,
+        dog_blob_watershed_for_chunks)
     from iterseg_tpu_torch.ops import flood_kernel as fk
+    from iterseg_tpu_torch.ops import image_flood_kernel as ifk
     from iterseg_tpu_torch.ops.watershed import segment_output_image
 
     dev = torch.device("cuda")
     gpu = gpu_line()
     print(gpu, flush=True)
 
-    # 1. build both compiled libraries at once
+    # 1. build the three compiled libraries at once
     from concurrent.futures import ThreadPoolExecutor
 
+    def timed(fn):
+        t = time.perf_counter()
+        fn()
+        return time.perf_counter() - t
+
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        jobs = [pool.submit(fk.build), pool.submit(native.get_lib)]
-        for j in jobs:
-            j.result()
+    with ThreadPoolExecutor(3) as pool:
+        jobs = {name: pool.submit(timed, fn) for name, fn in (
+            ("affinity_flood", fk.build), ("image_flood", ifk.build),
+            ("native", native.get_lib))}
+        each = {name: j.result() for name, j in jobs.items()}
     emit({"phase": "build", "gpu": gpu, "build_s": time.perf_counter() - t0,
-          "native_loaded": native.loaded(),
+          "build_s_each": each, "native_loaded": native.loaded(),
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
     # 2. kernel vs plain on a smooth fixture
@@ -165,6 +205,26 @@ def main():
         })
     emit({"phase": "kernel_vs_plain", "shape": list(mask.shape),
           "labelled": int((lk > 0).sum()), "seeds": int(seeds.max()),
+          "runs": rows})
+    values, markers, emask = (torch.from_numpy(x).to(dev)
+                              for x in edt_fixture((33, 256, 256), 250, 0))
+    rows = []
+    for cap in (1, 4):
+        lk, nk, ck = ifk.image_flood(values, markers, emask, inner_cap=cap)
+        lp, np_, cp = ifk.image_flood_plain(values, markers, emask,
+                                            inner_cap=cap)
+        check(torch.equal(lk, lp), f"image kernel != plain at {cap}")
+        check(nk == np_ and ck and cp,
+              f"image launches {nk} vs {np_}, converged {ck} {cp}")
+        rows.append({
+            "inner_cap": cap, "launches": nk, "equal": True, "tolerance": 0,
+            "ms": cuda_ms(lambda: ifk.image_flood(values, markers, emask,
+                                                  inner_cap=cap)),
+            "plain_ms": cuda_ms(lambda: ifk.image_flood_plain(
+                values, markers, emask, inner_cap=cap), reps=1),
+        })
+    emit({"phase": "image_kernel_vs_plain", "shape": list(emask.shape),
+          "labelled": int((lk > 0).sum()), "seeds": int(markers.max()),
           "runs": rows})
 
     # 3. forward parity, one chunk, card (TF32 off) vs CPU
@@ -263,7 +323,100 @@ def main():
           "objects": [int(st[t].max()) for t in range(len(st))],
           "seconds": stack_s, "voxels_per_s": stack.size / stack_s})
 
-    # 6. each kernel on the main path's own inputs
+    # 6. the DoG path, one (33, 512, 512) volume, both flood modes
+    import warnings
+
+    dog_profiles = []
+    dog_segment = dp.DoGPipeline.segment
+
+    def dog_profiled(self, volume, out=None, profile=None, normalize=False):
+        dog_profiles.append({} if profile is None else profile)
+        return dog_segment(self, volume, out=out, profile=dog_profiles[-1],
+                           normalize=normalize)
+
+    dp.DoGPipeline.segment = dog_profiled
+    image_captured = []
+    image_flood = ifk.image_flood
+
+    def image_capture(*args, **kw):
+        image_captured.append((args, kw))
+        return image_flood(*args, **kw)
+
+    ifk.image_flood = image_capture
+    dog_runs = {}
+    ifk.reset_launches()
+    dp.reset_flood_fallbacks()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        for name, mode in (("host_cold", False), ("host", False),
+                           ("pallas", "pallas")):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            labels = dog_blob_watershed(None, vol, None, "smoke-dog", None,
+                                        debug=True, device_flood=mode)
+            torch.cuda.synchronize()
+            dog_runs[name] = (labels, time.perf_counter() - t0,
+                              dog_profiles[-1])
+    dog_launches = ifk.launches()
+    dog_fallbacks = dp.flood_fallbacks()
+    ifk.image_flood = image_flood
+    dp.DoGPipeline.segment = dog_segment
+    host, pallas = dog_runs["host"][0], dog_runs["pallas"][0]
+    check(dog_launches > 0, "the CUDA image flood never launched")
+    check(dog_fallbacks == 0, "the device image flood fell back")
+    check(not [w for w in caught if issubclass(w.category, RuntimeWarning)],
+          f"warnings: {[str(w.message) for w in caught]}")
+    check(native.loaded(), "the native host flood did not load")
+    check(host.shape == vol.shape and host.dtype == np.int32,
+          f"DoG labels {host.shape} {host.dtype}")
+    check(int(host.max()) > 0, "the DoG path labelled nothing")
+    check(np.array_equal(host, dog_runs["host_cold"][0]),
+          "DoG repeat run differs")
+    check(np.array_equal(host > 0, pallas > 0), "DoG label support differs")
+    check(set(np.unique(host)) == set(np.unique(pallas)),
+          "DoG id sets differ")
+    sel = host > 0
+    dog_agreement = float((host[sel] == pallas[sel]).mean())
+    check(dog_agreement >= 0.9, f"DoG agreement {dog_agreement} < 0.9")
+    # the card's DoGPipeline against the host path and the CPU run
+    small = blob_volume((33, 256, 256), 250, 3).astype(np.float32)
+    small /= small.max()
+    t0 = time.perf_counter()
+    fast = dp.DoGPipeline().segment(small)
+    fast_s = time.perf_counter() - t0
+    ref = np.zeros(fast.shape, np.int32)
+    dog_blob_watershed_for_chunks(small, ref, None, None, 1, 1.5, 0.02,
+                                  use_device_pipeline=False)
+    check(np.array_equal(fast, ref), "DoG fast path != host path")
+    t0 = time.perf_counter()
+    on_cpu = dp.DoGPipeline(device="cpu").segment(small)
+    cpu_s = time.perf_counter() - t0
+    check(np.array_equal(fast, on_cpu), "DoG labels: card != CPU")
+    emit({"phase": "dog_path", "shape": list(vol.shape),
+          "objects": int(host.max()), "labelled_frac": float(sel.mean()),
+          "agreement": dog_agreement, "image_flood_launches": dog_launches,
+          "flood_fallbacks": dog_fallbacks, "runtime_warnings": 0,
+          "fast_equals_host": True, "card_equals_cpu": True,
+          "small_shape": list(small.shape), "small_card_s": fast_s,
+          "small_cpu_s": cpu_s,
+          "seconds": {k: v[1] for k, v in dog_runs.items()},
+          "voxels_per_s": {k: vol.size / v[1] for k, v in dog_runs.items()},
+          "profile": {k: v[2] for k, v in dog_runs.items()}})
+
+    # 7. a DoG stack
+    t0 = time.perf_counter()
+    st = dog_blob_watershed(None, stack, None, "smoke-dog-stack", None,
+                            debug=True)
+    dog_stack_s = time.perf_counter() - t0
+    check(st.shape == stack.shape, f"DoG stack labels {st.shape}")
+    check(all(st[t].max() > 0 for t in range(len(st))),
+          "unlabelled DoG frame")
+    emit({"phase": "dog_stack", "shape": list(stack.shape),
+          "objects": [int(st[t].max()) for t in range(len(st))],
+          "seconds": dog_stack_s, "voxels_per_s": stack.size / dog_stack_s})
+
+    # 8. each kernel on its path's own inputs
+    kernels = []
     (k_aff, k_seeds, k_mask), k_kw = captured[-1][0][:3], captured[-1][1]
     lk, nk, ck = fk.affinity_flood(k_aff, k_seeds, k_mask, **k_kw)
     lp, np_, cp = fk.affinity_flood_plain(k_aff, k_seeds, k_mask, **k_kw)
@@ -279,7 +432,7 @@ def main():
     free = int((k_mask & (k_seeds == 0)).sum())
     ops_s = (fk.OPS_PER_FREE_VOXEL_STEP * free * nk * k_kw["inner_cap"]
              / F32_OPS_PER_S)
-    emit({"kernels": [{
+    kernels.append({
         "name": "affinity_flood",
         "route": "cuda",
         "source": "iterseg_tpu_torch/csrc/affinity_flood.cu",
@@ -300,11 +453,50 @@ def main():
         / HBM_BYTES_PER_S * 1e3,
         "free_voxels": free,
         "library_ms": None,
-    }]})
+    })
+    (i_val, i_seeds, i_mask), i_kw = (image_captured[-1][0][:3],
+                                      image_captured[-1][1])
+    lk, nk, ck = ifk.image_flood(i_val, i_seeds, i_mask, **i_kw)
+    lp, np_, cp = ifk.image_flood_plain(i_val, i_seeds, i_mask, **i_kw)
+    check(ck and cp and nk == np_,
+          f"image launches {nk} vs {np_}, converged {ck} {cp}")
+    err = int((lk.long() - lp.long()).abs().max())
+    check(err == 0, f"image kernel differs from plain by {err}")
+    # least time: values (f32), seeds (i32) and mask (bool) read once and
+    # labels (i32) written once, or the free voxels' claim steps at the f32
+    # rate, whichever is larger
+    voxels = i_mask.numel()
+    io_s = (4 + 4 + 1 + 4) * voxels / HBM_BYTES_PER_S
+    free = int((i_mask & (i_seeds == 0)).sum())
+    ops_s = (ifk.OPS_PER_FREE_VOXEL_STEP * free * nk * i_kw["inner_cap"]
+             / F32_OPS_PER_S)
+    kernels.append({
+        "name": "image_flood",
+        "route": "cuda",
+        "source": "iterseg_tpu_torch/csrc/image_flood.cu",
+        "replaces": "iterseg_tpu/ops/pallas_flood.py:359",
+        "launches": dog_launches,
+        "shape": list(i_mask.shape),
+        "flood_launches": nk,
+        "max_abs_err": err,
+        "tolerance": 0,
+        "ms": cuda_ms(lambda: ifk.image_flood(i_val, i_seeds, i_mask,
+                                              **i_kw)),
+        "plain_ms": cuda_ms(lambda: ifk.image_flood_plain(
+            i_val, i_seeds, i_mask, **i_kw), reps=1),
+        "bound_ms": max(io_s, ops_s) * 1e3,
+        "bound_by": "bytes" if io_s >= ops_s else "operations",
+        "schedule_bound_ms": ifk.BYTES_PER_VOXEL_LAUNCH * voxels * nk
+        / HBM_BYTES_PER_S * 1e3,
+        "free_voxels": free,
+        "library_ms": None,
+    })
+    emit({"kernels": kernels})
     print(gpu_line(), flush=True)
+    # the run drives one card, whatever else the host shows
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
-                                 "count": torch.cuda.device_count()}})
+                                 "count": 1}})
     return 0
 
 

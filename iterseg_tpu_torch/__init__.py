@@ -5,8 +5,9 @@ hand-written CUDA kernels for NVIDIA Hopper (sm_90a). The port imports
 ``torch``, numpy and scipy, never ``jax`` and nothing of ``iterseg_tpu``.
 
 Submodules are imported lazily, so ``import iterseg_tpu_torch`` is cheap and
-builds no kernel: the CUDA flood kernel (``ops/flood_kernel``) and the host
-C++ flood (``native``) compile on first use into ``build/iterseg_tpu_torch``.
+builds no kernel: the CUDA flood kernels (``ops/flood_kernel``,
+``ops/image_flood_kernel``) and the host C++ floods (``native``) compile on
+first use into ``build/iterseg_tpu_torch``.
 
 Entry points run on CUDA unless the caller passes a CPU device
 (``device.resolve_device``).
@@ -20,9 +21,14 @@ __version__ = "0.1.0"
 _LAZY = {
     "segmenters": "iterseg_tpu_torch.engine.segmentation",
     "affinity_unet_watershed": "iterseg_tpu_torch.engine.segmentation",
+    "dog_blob_watershed": "iterseg_tpu_torch.engine.segmentation",
+    "unet_mask": "iterseg_tpu_torch.engine.segmentation",
+    "otsu_mask": "iterseg_tpu_torch.engine.segmentation",
+    "blob_watershed": "iterseg_tpu_torch.engine.segmentation",
     "load_unet": "iterseg_tpu_torch.engine.predict",
     "predict_volume": "iterseg_tpu_torch.engine.predict",
     "AffinityPipeline": "iterseg_tpu_torch.engine.device_pipeline",
+    "DoGPipeline": "iterseg_tpu_torch.engine.device_pipeline",
     "resolve_device": "iterseg_tpu_torch.device",
 }
 

@@ -1,7 +1,8 @@
-"""Device-resident affinity segmentation pipeline.
+"""Device-resident segmentation pipelines: the affinity U-Net watershed
+(``AffinityPipeline``) and the DoG blob watershed (``DoGPipeline``).
 
-The port of ``iterseg_tpu/engine/device_pipeline.py``'s ``AffinityPipeline``.
-Everything up to the candidates stays on the GPU; the host receives only the
+The port of ``iterseg_tpu/engine/device_pipeline.py``. ``AffinityPipeline``
+keeps everything up to the candidates on the GPU; the host receives only the
 bit-packed threshold mask, the live prefix of the sorted peak candidates and
 the affinities at masked voxels (an async copy into pinned memory that runs
 under the host's spacing and size-filter work), then runs the exact C++ heap
@@ -19,6 +20,15 @@ Stages, per volume:
      above 0.04 in the interior, a stable argsort capped at 2^18;
   H  host half: spacing, native size-band filter, masked affinity gather,
      exact heap flood (or the device flood).
+
+``DoGPipeline`` (no network) computes on the GPU, per volume: the DoG
+threshold mask (bit-packed), the ``blob_dog`` scale-space candidates
+(stable-sorted, capacity-capped) and the exact squared EDT, which stays on
+the card. The host prunes the blobs and labels the seeds, while the masked
+d² gather downloads underneath, then runs the exact bucket flood (the heap
+past ``native.BUCKET_FLOOD_MAX_KEY``). With ``device_flood="pallas"`` the
+flood runs on the GPU in the hand-written CUDA image kernel
+(``ops/image_flood_kernel``) on ``-sqrt(d²)``, at every frame width.
 """
 from __future__ import annotations
 
@@ -34,8 +44,8 @@ from ..ops.filters import maximum_filter
 from ..ops.watershed_oracle import neighbor_offsets
 from .. import native
 
-__all__ = ["AffinityPipeline", "get_feature_program", "flood_fallbacks",
-           "reset_flood_fallbacks"]
+__all__ = ["AffinityPipeline", "DoGPipeline", "get_feature_program",
+           "flood_fallbacks", "reset_flood_fallbacks"]
 
 _CAND_CAP = 1 << 18  # max pre-sorted peak candidates shipped to host
 _FLOOD_MAX_LAUNCHES = 512
@@ -270,6 +280,29 @@ def _pack_mask_bits(mask):
         1, dtype=torch.uint8)
 
 
+def _normalize_device_flood(value):
+    """``False``/``None`` -> ``False``; ``"pallas"`` stays; the modes of
+    ROADMAP slice 3 raise ``NotImplementedError``."""
+    if value in (None, False, "pallas"):
+        return value or False
+    if value is True or value == "xla":
+        raise NotImplementedError(
+            f"device_flood={value!r}: the XLA-recurrence flood and the "
+            "link-adaptive default arrive with ROADMAP slice 3 "
+            "(on-device floods); use device_flood='pallas'")
+    if value == "exact":
+        raise NotImplementedError(
+            "device_flood='exact' (certificate + repair) arrives with "
+            "ROADMAP slice 3 (on-device floods)")
+    raise ValueError(f"unknown device_flood {value!r}")
+
+
+def _f32(x) -> float:
+    """A python float that is exactly ``x`` rounded to float32, for
+    scalars that JAX would take as weak-typed f32."""
+    return float(np.float32(x))
+
+
 class AffinityPipeline:
     """U-Net → watershed segmentation of one zyx volume, device-resident."""
 
@@ -279,18 +312,7 @@ class AffinityPipeline:
         heap flood) or ``"pallas"`` (the approximate flood in the
         hand-written CUDA kernel that replaces the Pallas one — the name is
         kept so JAX callers move over unchanged)."""
-        if value in (None, False, "pallas"):
-            return value or False
-        if value is True or value == "xla":
-            raise NotImplementedError(
-                f"device_flood={value!r}: the XLA-recurrence flood and the "
-                "link-adaptive default arrive with ROADMAP slice 3 "
-                "(on-device floods); use device_flood='pallas'")
-        if value == "exact":
-            raise NotImplementedError(
-                "device_flood='exact' (certificate + repair) arrives with "
-                "ROADMAP slice 3 (on-device floods)")
-        raise ValueError(f"unknown device_flood {value!r}")
+        return _normalize_device_flood(value)
 
     def __init__(self, model, chunk_size=(10, 256, 256),
                  margin=(1, 64, 64), absolute_thresh=None,
@@ -567,6 +589,283 @@ class AffinityPipeline:
                 )
         _tick(profile, "flood", t0)
         return output.reshape(pshape)[1:-1, 1:-1, 1:-1]
+
+
+class DoGPipeline:
+    """DoG blob segmentation of one zyx volume, device-resident (the
+    device twin of ``dog_blob_watershed_for_chunks``): labels bit-equal to
+    the host path. The device ships the SQUARED EDT (exact integers) and
+    the host flood orders by it, which is the order of scipy's f64 EDT."""
+
+    @staticmethod
+    def normalize_device_flood(value):
+        """Canonical ``device_flood`` setting: ``False`` (the exact host
+        bucket flood) or ``"pallas"`` (the approximate flood in the CUDA
+        image kernel, at every frame width)."""
+        return _normalize_device_flood(value)
+
+    def __init__(self, min_sigma=1, max_sigma=1.5, threshold=0.02,
+                 sigma_ratio=1.6, cand_capacity: int = _CAND_CAP,
+                 device_flood=False, device=None):
+        self.min_sigma = float(min_sigma)
+        self.max_sigma = float(max_sigma)
+        self.threshold = float(threshold)
+        self.sigma_ratio = float(sigma_ratio)
+        self.cand_capacity = cand_capacity
+        self.device_flood = self.normalize_device_flood(device_flood)
+        self.device = resolve_device(device)
+        k = int(np.log(self.max_sigma / self.min_sigma)
+                / np.log(self.sigma_ratio) + 1)
+        self.sigma_list = np.array(
+            [self.min_sigma * self.sigma_ratio ** i for i in range(k + 1)])
+
+    def _program(self, vol, normalize=False):
+        """The device half on an uploaded frame; returns ``(mask_packed,
+        order, n_cand, dist_sq, cube)``, all on zyx + 2. ``normalize``
+        divides by the volume max on the device, bit-identical to the
+        host's ``/ max`` (int -> f32 is exact, max is exact selection, the
+        same f32 division), so integer frames upload in their dtype."""
+        from ..ops.edt import edt_sq
+        from ..ops.filters import gaussian
+
+        thr = _f32(self.threshold)
+        sf = _f32(1.0 / (self.sigma_ratio - 1.0))
+        vol = vol.to(torch.float32)
+        if normalize:
+            vol = vol / torch.amax(vol)
+        vol_pad = torch.nn.functional.pad(vol, (1, 1, 1, 1, 1, 1))
+        # threshold mask from the classic DoG image (segmentation.py:635)
+        dog = (gaussian(vol_pad, self.min_sigma)
+               - gaussian(vol_pad, self.max_sigma))
+        mask_packed = _pack_mask_bits(dog > thr)
+        # blob_dog scale space (ops/blob.py semantics)
+        gs = [gaussian(vol_pad, float(s)) for s in self.sigma_list]
+        cube = torch.stack([(gs[i] - gs[i + 1]) * sf
+                            for i in range(len(gs) - 1)], dim=-1)
+        cand = (cube == maximum_filter(cube, 3)) & (cube > thr)
+        scores = torch.where(cand, -cube, float("inf")).reshape(-1)
+        order = torch.argsort(scores, stable=True)[:self.cand_capacity]
+        n_cand = cand.sum().to(torch.int32)
+        # exact squared EDT of the padded volume's nonzero support; the
+        # cube stays on the card for the candidate-overflow path only
+        dist_sq = edt_sq(vol_pad != 0)
+        return mask_packed, order.to(torch.int32), n_cand, dist_sq, cube
+
+    def _device_outputs(self, volume, device=None, normalize=False):
+        """Upload one volume and run the device half (no host
+        synchronisation); starts the host copies of the candidate count
+        and, unless the flood runs on the device, of the mask bits."""
+        device = self.device if device is None else torch.device(device)
+        volume = np.asarray(volume)
+        if not (normalize and np.issubdtype(volume.dtype, np.integer)
+                and volume.dtype.itemsize <= 4):
+            volume = np.asarray(volume, dtype=np.float32)
+        x = torch.from_numpy(np.ascontiguousarray(volume)).to(device)
+        mask_packed, order, n_cand, dist_sq, cube = self._program(
+            x, normalize=normalize)
+        if not self.device_flood:
+            mask_packed = _HostCopy(mask_packed)
+        return mask_packed, order, _HostCopy(n_cand), dist_sq, cube
+
+    def segment(self, volume, out=None, profile=None, normalize=False):
+        """Labels of shape ``volume.shape + 2`` (the padded frame, the
+        reference's ``current_output`` contract for the DoG path).
+        ``normalize``: run the ``/ max`` on the device (integer volumes
+        then upload in their source dtype)."""
+        volume = np.asarray(volume)
+        t0 = time.perf_counter()
+        outs = self._device_outputs(volume, normalize=normalize)
+        _host(outs[2])  # fence: the count comes from the end of the program
+        _tick(profile, "device_program", t0)
+        return self._finalize(volume.shape, outs, out=out, profile=profile)
+
+    def segment_stack(self, stack, output_labels, skip_labelled=True,
+                      profile=None, devices=None):
+        """Pipelined 4D (t, z, y, x) DoG segmentation: frame t+1's device
+        half is queued before frame t's host half runs. Writes cropped
+        labels into ``output_labels[t]`` and yields t (warm restart when
+        ``skip_labelled``). ``devices``: a list of one ``torch.device``."""
+        from ..core.volume import restore_labels
+
+        if devices is not None and len(devices) > 1:
+            raise NotImplementedError(
+                "segment_stack over several GPUs arrives with ROADMAP "
+                "slice 7 (multi-GPU); pass one device")
+
+        def dispatch_one(t, device):
+            raw = np.asarray(stack[t])
+            vol, kept, dev_norm = _prepare_frame(raw)
+            outs = self._device_outputs(vol, device=device,
+                                        normalize=dev_norm)
+            return vol.shape, outs, kept, raw.shape
+
+        def finalize_one(job):
+            zyx, outs, kept, orig_shape = job
+            padded = self._finalize(zyx, outs, profile=profile)
+            return restore_labels(padded[1:-1, 1:-1, 1:-1], kept, orig_shape)
+
+        yield from _drive_stack(stack, output_labels, skip_labelled,
+                                devices, dispatch_one, finalize_one)
+
+    def _flood_on_device(self, mask_packed, dist_sq, markers, profile=None):
+        """The ``device_flood="pallas"`` flood: upload the seeds, run the
+        CUDA image kernel on ``-sqrt(d²)`` over the device-resident mask
+        bits and squared EDT, download labels of the padded frame in the
+        wire dtype. Returns int32 labels, or ``None`` when the flood did not
+        converge (the caller then runs the exact host flood)."""
+        from ..ops.image_flood_kernel import image_flood
+
+        global _flood_fallbacks
+        t0 = time.perf_counter()
+        dev = dist_sq.device
+        pshape = tuple(dist_sq.shape)
+        coords = np.argwhere(markers > 0)
+        labs = markers[tuple(coords.T)].astype(np.int32)
+        bits = (mask_packed if isinstance(mask_packed, torch.Tensor)
+                else torch.from_numpy(_host(mask_packed)))
+        mask_dev, seeds_dev = _flood_prep(
+            bits.to(dev), torch.from_numpy(coords).to(dev),
+            torch.from_numpy(labs).to(dev), pshape)
+        # f32 sqrt is correctly rounded, like the host's f64 sqrt cast to
+        # f32, so these are the host path's priorities
+        values = -torch.sqrt(dist_sq)
+        t0 = _tick(profile, "upload_mask_seeds", t0)
+        lab_dev, n_launches, conv = image_flood(
+            values, seeds_dev, mask_dev, max_launches=_FLOOD_MAX_LAUNCHES,
+            inner_cap=1)
+        if profile is not None:
+            profile["flood_launches"] = n_launches
+        if not conv:
+            _flood_fallbacks += 1
+            if profile is not None:
+                profile["flood_fallback"] = True
+            _tick(profile, "device_flood", t0)
+            return None
+        t0 = _tick(profile, "device_flood", t0)
+        wide = int(markers.max(initial=0)) >= 2 ** 16
+        wire = lab_dev.to(torch.int32 if wide else torch.uint16)
+        labels = _host(wire).astype(np.int32)
+        _tick(profile, "download_labels", t0)
+        return labels
+
+    def _finalize(self, zyx, outs, out=None, profile=None):
+        """Host half: blob pruning, seed labelling and the seeded flood on
+        the EDT landscape. Returns int32 labels of zyx + 2."""
+        from ..ops.blob import _prune_blobs
+        from ..ops.cc import label_np
+        from ..ops.peaks import _ensure_spacing
+
+        mask_packed, order, n_cand, dist_sq, cube = outs
+        t0 = time.perf_counter()
+        pshape = tuple(int(s) + 2 for s in zyx)
+        nvox = int(np.prod(pshape))
+        n_cand = int(_host(n_cand))
+        cube_shape = pshape + (len(self.sigma_list) - 1,)
+        if n_cand > self.cand_capacity:
+            # overflow: the ranking past the capacity was dropped on the
+            # device, so recompute the full candidate order on the host
+            # from the cube — the same stable argsort of the same f32 scores
+            from scipy.ndimage import maximum_filter as ndi_max
+
+            cube_np = _host(cube)
+            cand = cube_np == ndi_max(cube_np, size=3, mode="nearest")
+            cand &= cube_np > np.float32(self.threshold)
+            scores = np.where(cand, -cube_np, np.inf).ravel()
+            idx_sorted = np.argsort(scores, kind="stable")[:n_cand]
+        else:
+            idx_sorted = _host(order[:n_cand])
+        coords4 = np.stack(np.unravel_index(idx_sorted, cube_shape), axis=1)
+        mask = None
+        if not self.device_flood:
+            mask = np.unpackbits(_host(mask_packed))[:nvox].view(
+                np.bool_).reshape(pshape)
+        t0 = _tick(profile, "download", t0)
+
+        def dispatch_gather(mask):
+            """Masked d² gather (the host flood reads distances at masked
+            voxels only); its copy runs under the host blob pruning."""
+            dev_idx = np.flatnonzero(mask.ravel())
+            idx = torch.from_numpy(dev_idx).to(dist_sq.device)
+            return len(dev_idx), _HostCopy(dist_sq.reshape(-1)[idx])
+
+        if mask is not None:
+            m, vals = dispatch_gather(mask)
+            t0 = _tick(profile, "gather_dispatch", t0)
+
+        coords4 = _ensure_spacing(coords4, spacing=1)
+        lm = coords4.astype(np.float64)
+        sigmas = self.sigma_list[coords4[:, -1]][:, None]
+        blobs = _prune_blobs(np.hstack([lm[:, :-1], sigmas]), 0.5,
+                             sigma_dim=1)
+        centroids = np.zeros(pshape, dtype=bool)
+        if len(blobs):
+            centroids[tuple(blobs.T.astype(int))[:-1]] = True
+        markers, _ = label_np(centroids)
+        t0 = _tick(profile, "host_blobs", t0)
+
+        if self.device_flood:
+            labels = self._flood_on_device(mask_packed, dist_sq, markers,
+                                           profile=profile)
+            if labels is not None:
+                if out is not None:
+                    out[...] = labels
+                return labels
+            # the exact host flood: unpack the mask and gather now
+            t0 = time.perf_counter()
+            mask = np.unpackbits(_host(mask_packed))[:nvox].view(
+                np.bool_).reshape(pshape)
+            m, vals = dispatch_gather(mask)
+        labels = self._host_flood(mask, markers, m, vals, profile=profile)
+        if out is not None:
+            out[...] = labels
+        return labels
+
+    def _host_flood(self, mask, markers, m, vals, profile=None):
+        """The exact flood on the host, over the frame padded once more
+        (the native floods need a ring outside the mask): the bucket queue
+        over integer d² below ``BUCKET_FLOOD_MAX_KEY``, the heap on
+        ``-sqrt(d²)`` past it, the pure-python heap without the native
+        library."""
+        t0 = time.perf_counter()
+        vals_sq = _host(vals)[:m]
+        t0 = _tick(profile, "gather_distance", t0)
+        mask_w = np.pad(mask, 1, constant_values=False)
+        markers_w = np.pad(markers, 1, constant_values=0)
+        masked_idx = np.flatnonzero(mask_w.ravel())
+        wshape = mask_w.shape
+        output = np.where(mask_w, markers_w, 0).astype(np.int32).ravel()
+        marker_locations = np.flatnonzero(output).astype(np.int64)
+        offsets, _ = neighbor_offsets(wshape)
+        max_key = int(vals_sq.max()) if m else 0
+
+        def priorities():
+            # the f32 cast of the f64 sqrt: image_watershed's -EDT image
+            prio = np.zeros(mask_w.size, np.float32)
+            prio[masked_idx] = (-np.sqrt(vals_sq.astype(np.float64))).astype(
+                np.float32)
+            return prio
+
+        try:
+            if max_key < native.BUCKET_FLOOD_MAX_KEY:
+                keys = np.zeros(mask_w.size, np.int32)
+                keys[masked_idx] = vals_sq.astype(np.int32)
+                native.bucket_flood_image(keys, offsets, marker_locations,
+                                          mask_w.ravel(), output)
+            else:
+                prio = priorities()
+                native.priority_flood(
+                    prio[None], offsets, np.zeros(len(offsets), np.int64),
+                    offsets, marker_locations, prio[marker_locations],
+                    mask_w.ravel(), output)
+        except native.NativeUnavailable:
+            from ..ops import watershed_oracle as oracle
+
+            inner = (slice(1, -1),) * 3
+            labels_p = oracle.image_flood_py(
+                priorities().reshape(wshape)[inner], markers, mask)
+            output = np.pad(labels_p, 1).astype(np.int32).ravel()
+        _tick(profile, "flood", t0)
+        return output.reshape(wshape)[1:-1, 1:-1, 1:-1]
 
 
 def _tick(profile, name, t0):

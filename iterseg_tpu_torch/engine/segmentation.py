@@ -1,13 +1,15 @@
-"""Segmenter registry and batch-segmentation driver (affinity route).
+"""Segmenter registry and the batch-segmentation loop.
 
-The port of ``iterseg_tpu/engine/segmentation.py`` for the
-``affinity-unet-watershed`` segmenter: config prep, the per-volume process,
-``segmentation_wrapper`` (label store allocation, the frame loop, the
-optional background worker), ``segmentation_loop`` with its warm restart
-(labelled frames of a 4D store are skipped), ``segment_single_volume`` and
-the ``segmenters`` registry. Signatures are the JAX package's; the
+The port of ``iterseg_tpu/engine/segmentation.py``: for each segmenter a
+(config prep, per-volume process) pair — ``affinity-unet-watershed`` and
+``DoG-blob-watershed`` in the ``segmenters`` registry, and the working
+``unet_mask``, ``otsu_mask`` and ``blob_watershed`` that stay out of it, as
+in the reference — plus ``segmentation_wrapper`` (label store allocation,
+the frame loop, the optional background worker), ``segmentation_loop``
+with its warm restart (labelled frames of a 4D store are skipped) and
+``segment_single_volume``. Signatures are the JAX package's; the
 keyword-only ``devices`` takes a list of one ``torch.device`` (``None``
-means CUDA). The DoG segmenter is ROADMAP slice 2.
+means CUDA).
 """
 from __future__ import annotations
 
@@ -20,15 +22,29 @@ from typing import Callable, Union
 
 import numpy as np
 
+import torch
+
 from ..core.volume import prepare_volume, restore_labels
 from ..io.zarr_io import save_labels_to_ome
 from ..ops import watershed as ws
+from ..ops.blob import blob_dog, blob_log
+from ..ops.cc import label_np
+from ..ops.edt import edt_np
+from ..ops.filters import dog_image as _dog_image_t
+from ..ops.filters import gaussian
 from .predict import load_unet, predict_volume
 
 __all__ = [
     "affinity_unet_watershed",
     "affinity_watershed_prep_config",
     "affinity_watershed_for_chunks",
+    "dog_blob_watershed",
+    "dog_blob_watershed_prep_config",
+    "dog_blob_watershed_for_chunks",
+    "dog_image",
+    "unet_mask",
+    "otsu_mask",
+    "blob_watershed",
     "segmentation_wrapper",
     "SegmentationWorker",
     "segmentation_loop",
@@ -83,6 +99,21 @@ def _single_device(devices):
             f"devices={devices}: several GPUs arrive with ROADMAP slice 7 "
             "(multi-GPU); pass a list of one torch.device")
     return resolve_device(devices[0])
+
+
+def dog_image(input_vol, sigma_min, sigma_max, device=None):
+    """Difference of Gaussians on ``device`` (CUDA by default), as numpy —
+    parity: segmentation.py:678-680."""
+    from ..device import resolve_device
+
+    x = torch.as_tensor(np.asarray(input_vol), device=resolve_device(device))
+    return _dog_image_t(x, sigma_min, sigma_max).cpu().numpy()
+
+
+def _smoothed_np(image, sigma, device):
+    """``gaussian(image, sigma)`` on ``device``, as numpy."""
+    x = torch.as_tensor(np.ascontiguousarray(image), device=device)
+    return gaussian(x, float(sigma)).cpu().numpy()
 
 
 def affinity_watershed_prep_config(input_volume_layer, unet_or_config_file,
@@ -274,6 +305,319 @@ def affinity_unet_watershed(
     )
 
 
+# ---------------------------------------------------------------------------
+# DoG blob watershed
+# ---------------------------------------------------------------------------
+
+
+def dog_blob_watershed_prep_config(
+    input_volume_layer,
+    unet_or_config_file,
+    reference_layer,
+    max_sigma=1.5,
+    min_sigma=1,
+    threshold=0.02,
+    device_flood=None,
+):
+    """The DoG parameters from a JSON config (``max_sigma``, ``min_sigma``,
+    ``threshold``, ``device_flood``) or the defaults; explicit falsy values
+    (e.g. threshold 0) are honoured, only a missing or null key falls back.
+    ``device_flood="pallas"`` floods on the GPU with the CUDA image kernel
+    (approximate; the default is the exact host flood)."""
+    if unet_or_config_file is not None:
+        config = read_config_json(str(unet_or_config_file))
+        max_sigma = _config_or(config, "max_sigma", max_sigma)
+        min_sigma = _config_or(config, "min_sigma", min_sigma)
+        threshold = _config_or(config, "threshold", threshold)
+        if device_flood is None:
+            device_flood = config.get("device_flood")
+    return {
+        "max_sigma": max_sigma,
+        "min_sigma": min_sigma,
+        "threshold": threshold,
+        "pipeline_cache": {},
+        "device_flood": device_flood or False,
+    }
+
+
+def _dog_pipeline(cache, min_sigma, max_sigma, threshold, device_flood,
+                  device):
+    from .device_pipeline import DoGPipeline
+
+    device_flood = DoGPipeline.normalize_device_flood(device_flood)
+    key = ("dog", float(min_sigma), float(max_sigma), float(threshold),
+           device_flood, str(device))
+    if key not in cache:
+        cache[key] = DoGPipeline(min_sigma=min_sigma, max_sigma=max_sigma,
+                                 threshold=threshold,
+                                 device_flood=device_flood, device=device)
+    return cache[key]
+
+
+def dog_blob_watershed_for_chunks(
+    input_volume,
+    current_output,
+    chunk_size,
+    margin,
+    min_sigma,
+    max_sigma,
+    threshold,
+    pipeline_cache=None,
+    use_device_pipeline=True,
+    device_flood=False,
+    flood_telemetry=False,
+    device_normalize=False,
+    profile=None,
+    devices=None,
+    **kwargs,
+):
+    """Whole-volume DoG blob segmentation (parity: segmentation.py:592-650):
+    pad by 1, DoG mask, ``blob_dog`` seed points, EDT-landscape watershed.
+    The chunk grid is ignored, as in the reference.
+
+    Default fast path: the device-resident ``DoGPipeline``; labels are
+    bit-identical to the host path (``use_device_pipeline=False``).
+    ``flood_telemetry`` is accepted for config uniformity and ignored, as
+    in the JAX package (there is no image-flood certificate)."""
+    device = _single_device(devices)
+    if use_device_pipeline:
+        if pipeline_cache is None:
+            pipeline_cache = {}
+        pipe = _dog_pipeline(pipeline_cache, min_sigma, max_sigma, threshold,
+                             device_flood, device)
+        pipe.segment(input_volume, out=current_output, profile=profile,
+                     normalize=bool(device_normalize))
+        return
+    if device_normalize:
+        # the caller skipped host normalisation expecting the device /max:
+        # do it here (same arithmetic)
+        input_volume = np.asarray(input_volume).astype(np.float32)
+        input_volume = input_volume / np.max(input_volume)
+    input_volume = np.pad(input_volume, pad_width=1)
+    dog = dog_image(input_volume, min_sigma, max_sigma, device=device)
+    mask = dog > threshold
+    markers_blobs = blob_dog(input_volume, min_sigma=min_sigma,
+                             max_sigma=max_sigma, threshold=threshold,
+                             device=device)
+    distance = edt_np(input_volume)
+    centroids = np.zeros(distance.shape, dtype=bool)
+    idx = tuple(markers_blobs.T.astype(int))[:-1]
+    centroids[idx] = True
+    markers, _ = label_np(centroids)
+    labels = ws.image_watershed(-distance, markers, mask)
+    current_output[:, ...] = labels
+
+
+def dog_blob_watershed(
+    napari_viewer,
+    input_volume_layer,
+    save_dir: Union[str, None] = None,
+    name: str = "labels-prediction",
+    config_file: Union[str, None] = None,
+    layer_reference=None,
+    chunk_size=(10, 256, 256),
+    margin=(1, 64, 64),
+    debug: bool = False,
+    *,
+    devices=None,
+    device_flood=None,
+    flood_telemetry=None,
+    threaded: bool = False,
+):
+    """Classical DoG blob segmentation (no network) of a 3D volume or 4D
+    stack. The JAX package's signature. Keyword-only: ``devices`` — a list
+    of one ``torch.device`` (``None``: CUDA); ``device_flood`` — ``"pallas"``
+    floods on the GPU with the CUDA image kernel (approximate, exact host
+    fallback on non-convergence), ``False`` (default) runs the exact host
+    flood; ``flood_telemetry`` — accepted and ignored, as in JAX;
+    ``threaded`` — return a live :class:`SegmentationWorker`."""
+    del flood_telemetry
+    prep = dog_blob_watershed_prep_config
+    if device_flood is not None:
+        def prep(layer, cfg, ref, _df=device_flood):
+            return dog_blob_watershed_prep_config(layer, cfg, ref,
+                                                  device_flood=_df)
+    return segmentation_wrapper(
+        dog_blob_watershed_for_chunks,
+        prep,
+        napari_viewer,
+        input_volume_layer,
+        save_dir,
+        name,
+        config_file,
+        layer_reference,
+        chunk_size,
+        margin,
+        debug,
+        threaded=threaded,
+        devices=devices,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Auxiliary segmenters (working equivalents of the reference's disabled ones)
+# ---------------------------------------------------------------------------
+
+
+def unet_mask_for_chunks(input_volume, current_output, chunk_size, margin,
+                         output_volume=None, unet=None, devices=None,
+                         **kwargs):
+    """U-Net mask channel only (reference's disabled unet-mask,
+    segmentation.py:248-296, made functional)."""
+    from ..ops.threshold import threshold_otsu_np
+
+    device = _single_device(devices)
+    if output_volume.shape[1:] != input_volume.shape:
+        # zero-slice removal shrank the frame
+        output_volume = np.zeros(
+            (output_volume.shape[0],) + input_volume.shape, dtype=np.float32)
+    predict_volume(unet, input_volume, chunk_size=chunk_size, margin=margin,
+                   output_volume=output_volume, device=device)
+    masking = output_volume[3]
+    mask = masking > threshold_otsu_np(_smoothed_np(masking, 2.0, device))
+    current_output[1:-1, 1:-1, 1:-1] = mask
+    output_volume[:] = 0
+
+
+def unet_mask(napari_viewer, input_volume_layer, save_dir=None,
+              name="labels-prediction", unet_or_config_file=None,
+              layer_reference=None, chunk_size=(10, 256, 256),
+              margin=(1, 64, 64), debug=False, *, devices=None):
+    return segmentation_wrapper(
+        unet_mask_for_chunks, affinity_watershed_prep_config, napari_viewer,
+        input_volume_layer, save_dir, name, unet_or_config_file,
+        layer_reference, chunk_size, margin, debug, devices=devices,
+    )
+
+
+def otsu_mask_for_chunks(input_volume, current_output, chunk_size, margin,
+                         gaus_sigma=2, devices=None, **kwargs):
+    from ..ops.threshold import threshold_otsu_np
+
+    smoothed = _smoothed_np(input_volume, gaus_sigma,
+                            _single_device(devices))
+    mask = input_volume > threshold_otsu_np(smoothed)
+    current_output[1:-1, 1:-1, 1:-1] = mask
+
+
+def otsu_mask_prep_config(input_volume_layer, config_file, layer_reference):
+    """A JSON config may set ``gaus_sigma`` (default 2, the
+    ``ws._get_mask`` sigma); the reference's version cannot be reached
+    from the wrapper (segmentation.py:408-410)."""
+    gaus_sigma = 2
+    if config_file is not None:
+        config = read_config_json(str(config_file))
+        gaus_sigma = _config_or(config, "gaus_sigma", gaus_sigma)
+    return {"gaus_sigma": gaus_sigma}
+
+
+def otsu_mask(napari_viewer, input_volume_layer, save_dir=None,
+              name="labels-prediction", config_file=None,
+              layer_reference=None, chunk_size=(10, 256, 256),
+              margin=(1, 64, 64), debug=False, *, devices=None):
+    return segmentation_wrapper(
+        otsu_mask_for_chunks, otsu_mask_prep_config, napari_viewer,
+        input_volume_layer, save_dir, name, config_file, layer_reference,
+        chunk_size, margin, debug, devices=devices,
+    )
+
+
+def blob_watershed_prep_config(
+    input_volume_layer,
+    unet_or_config_file,
+    reference_layer,
+    min_sigma=1,
+    max_sigma=30,
+    num_sigma=10,
+    threshold=0.1,
+    gaus_sigma=2,
+):
+    """The LoG parameters (the reference's defaults); a JSON config may
+    override any of them, as in the DoG prep."""
+    if unet_or_config_file is not None:
+        config = read_config_json(str(unet_or_config_file))
+        min_sigma = _config_or(config, "min_sigma", min_sigma)
+        max_sigma = _config_or(config, "max_sigma", max_sigma)
+        num_sigma = _config_or(config, "num_sigma", num_sigma)
+        threshold = _config_or(config, "threshold", threshold)
+        gaus_sigma = _config_or(config, "gaus_sigma", gaus_sigma)
+    return {
+        "min_sigma": min_sigma,
+        "max_sigma": max_sigma,
+        "num_sigma": num_sigma,
+        "threshold": threshold,
+        "gaus_sigma": gaus_sigma,
+    }
+
+
+def blob_watershed_for_chunks(
+    input_volume,
+    current_output,
+    chunk_size,
+    margin,
+    min_sigma,
+    max_sigma,
+    num_sigma,
+    threshold,
+    gaus_sigma,
+    devices=None,
+    **kwargs,
+):
+    """LoG blob segmentation (the working twin of the reference's disabled
+    ``blob_watershed_for_chunks``, segmentation.py:456-514): LoG scale
+    space → labelled point seeds; EDT of the image as the landscape; mask
+    = ``img > otsu(gaussian(img, gaus_sigma))``. Chunk grid ignored."""
+    from ..ops.threshold import threshold_otsu_np
+
+    device = _single_device(devices)
+    markers_blobs = blob_log(
+        input_volume, min_sigma=min_sigma, max_sigma=max_sigma,
+        num_sigma=int(num_sigma), threshold=threshold, device=device,
+    )
+    smoothed = _smoothed_np(input_volume, gaus_sigma, device)
+    mask = input_volume > threshold_otsu_np(smoothed)
+    distance = edt_np(input_volume)
+    centroids = np.zeros(distance.shape, dtype=bool)
+    if len(markers_blobs):
+        idx = tuple(markers_blobs[:, :input_volume.ndim].T.astype(int))
+        centroids[idx] = True
+    markers, _ = label_np(centroids)
+    labels = ws.image_watershed(-distance, markers, mask)
+    current_output[1:-1, 1:-1, 1:-1] = labels
+
+
+def blob_watershed(
+    napari_viewer,
+    input_volume_layer,
+    save_dir: Union[str, None] = None,
+    name: str = "labels-prediction",
+    config_file: Union[str, None] = None,
+    layer_reference=None,
+    chunk_size=(10, 256, 256),
+    margin=(1, 64, 64),
+    debug: bool = False,
+    *,
+    devices=None,
+):
+    """LoG blob watershed, kept out of the ``segmenters`` registry as in
+    the reference but callable directly, like ``unet_mask`` and
+    ``otsu_mask``."""
+    return segmentation_wrapper(
+        blob_watershed_for_chunks,
+        blob_watershed_prep_config,
+        napari_viewer,
+        input_volume_layer,
+        save_dir,
+        name,
+        config_file,
+        layer_reference,
+        chunk_size,
+        margin,
+        debug,
+        devices=devices,
+    )
+
+
 def allocate_labels_store(save_path, shape, chunk_size, name,
                           scale=None, translate=None, dtype=np.int32):
     """The output labels store: OME-Zarr, chunked one frame / one
@@ -422,6 +766,20 @@ def segmentation_loop(viewer, data, chunk_size, margin, output_labels,
                          config.get("flood_telemetry", False), device=device)
         yield from pipe.segment_stack(data, output_labels)
         return
+    if (
+        processing_function is dog_blob_watershed_for_chunks
+        and config.get("pipeline_cache") is not None
+        and "min_sigma" in config
+        and config.get("use_device_pipeline", True)
+    ):
+        # pipelined 4D DoG fast path: frame t+1's device half overlaps
+        # frame t's host blob pruning and flood (same labels as per frame)
+        pipe = _dog_pipeline(config["pipeline_cache"], config["min_sigma"],
+                             config["max_sigma"], config["threshold"],
+                             config.get("device_flood") or False,
+                             _single_device(config.get("devices")))
+        yield from pipe.segment_stack(data, output_labels)
+        return
     for t in range(data.shape[0]):
         if np.any(np.asarray(output_labels[t])):
             continue  # warm restart: frame already segmented
@@ -436,17 +794,22 @@ def segmentation_loop(viewer, data, chunk_size, margin, output_labels,
 def segment_single_volume(input_volume, chunk_size, config, margin,
                           processing_function):
     """Normalise, pad the output by one voxel, process, crop. Removed
-    all-zero hyperplanes are scattered back as background. When the device
-    pipeline runs, integer volumes (itemsize <= 4) skip host normalisation
-    and upload in their source dtype; the /max then runs on the device
-    (bit-identical)."""
+    all-zero hyperplanes are scattered back as background. When a device
+    pipeline (affinity or DoG) runs, integer volumes (itemsize <= 4) skip
+    host normalisation and upload in their source dtype; the /max then runs
+    on the device (bit-identical)."""
     raw = np.asarray(input_volume)
     original_shape = raw.shape
+    use_dp = config.get("use_device_pipeline", True)
+    device_pipeline_ready = (
+        (processing_function is affinity_watershed_for_chunks
+         and _affinity_pipeline_ready(config.get("unet"),
+                                      config.get("output_volume"), use_dp))
+        or (processing_function is dog_blob_watershed_for_chunks
+            and use_dp and "min_sigma" in config)
+    )
     integer_wire = (
-        processing_function is affinity_watershed_for_chunks
-        and _affinity_pipeline_ready(config.get("unet"),
-                                     config.get("output_volume"),
-                                     config.get("use_device_pipeline", True))
+        device_pipeline_ready
         and np.issubdtype(raw.dtype, np.integer)
         and raw.dtype.itemsize <= 4
     )
@@ -469,4 +832,5 @@ def segment_single_volume(input_volume, chunk_size, config, margin,
 
 segmenters = {
     "affinity-unet-watershed": affinity_unet_watershed,
+    "DoG-blob-watershed": dog_blob_watershed,
 }

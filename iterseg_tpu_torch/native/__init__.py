@@ -4,7 +4,8 @@ The port's own copy of ``iterseg_tpu/native``: the same source
 (``priority_flood.cpp``) and the same ctypes signatures. The priority-flood
 watershed is the one inherently sequential hot loop of the inference
 pipeline (a heap-ordered flood; see ``ops/watershed_oracle.py`` for the
-semantics). It runs on host, under the GPU's work on the next frame, as an
+semantics); ``bucket_flood_image`` is its exact bucket-queue twin for the
+DoG path's integer squared distances. It runs on host, under the GPU's work on the next frame, as an
 -O3 C++ kernel.
 
 The shared library is compiled on first use with the system ``g++`` into the
@@ -79,6 +80,25 @@ def get_lib():
             ctypes.c_int64,
             ctypes.POINTER(ctypes.c_uint8),
         ]
+        lib.bucket_flood_image.restype = None
+        lib.bucket_flood_image.argtypes = [
+            ctypes.POINTER(ctypes.c_int32),   # keys (d^2)
+            ctypes.POINTER(ctypes.c_int64),   # offsets
+            ctypes.c_int32,                   # n_nbr
+            ctypes.POINTER(ctypes.c_int64),   # markers
+            ctypes.c_int64,                   # n_markers
+            ctypes.POINTER(ctypes.c_uint8),   # mask
+            ctypes.POINTER(ctypes.c_int32),   # output
+            ctypes.c_int64,                   # n
+        ]
+        lib.edt3d.restype = None
+        lib.edt3d.argtypes = [
+            ctypes.POINTER(ctypes.c_uint8),
+            ctypes.POINTER(ctypes.c_double),
+            ctypes.c_int64,
+            ctypes.c_int64,
+            ctypes.c_int64,
+        ]
         lib.priority_flood.restype = None
         lib.priority_flood.argtypes = [
             ctypes.POINTER(ctypes.c_float),   # values
@@ -128,6 +148,72 @@ def priority_flood(values, offsets, val_chan, val_off, markers, seed_values,
         ctypes.c_int64(n),
     )
     return output
+
+
+# Heap-order equivalence bound for ``bucket_flood_image``: the heap orders
+# by f32 ``-sqrt(k)``, the bucket queue strictly by integer ``k`` — they
+# agree iff distinct keys map to distinct f32 priorities. For integers
+# a < b, sqrt(b) - sqrt(a) >= 1 / (2*sqrt(b)), while one f32 value spans at
+# most ulp(sqrt(b)) <= sqrt(b) * 2^-23; the gap exceeds the span whenever
+# b < 2^22, so keys below 2^22 are provably collision-free (a 3D EDT hits
+# this only past ~1180 voxels of axis-aligned distance).
+BUCKET_FLOOD_MAX_KEY = 1 << 22
+
+
+def bucket_flood_image(keys, offsets, markers, mask, output):
+    """Image-mode priority flood with DISCRETE integer priorities.
+
+    The exact heap-order twin of ``priority_flood`` in image mode when every
+    priority is ``-sqrt(keys[i])`` for integer ``keys`` (the EDT
+    watershed): buckets by key instead of a heap. ``markers`` must be
+    ascending (flatnonzero order); ``output`` pre-seeded at markers. In
+    place on raveled int32 ``output``.
+
+    Raises ``ValueError`` when any key reaches ``BUCKET_FLOOD_MAX_KEY``:
+    beyond it adjacent integer keys can round to the same f32 ``-sqrt``
+    priority, where the heap tie-breaks by age but the bucket queue still
+    orders strictly by key — callers must use ``priority_flood`` there.
+    """
+    lib = get_lib()
+    keys = np.ascontiguousarray(keys, dtype=np.int32)
+    if keys.size and int(keys.max()) >= BUCKET_FLOOD_MAX_KEY:
+        raise ValueError(
+            f"bucket_flood_image key {int(keys.max())} >= 2^22: f32 -sqrt "
+            "priorities may collide (heap would tie-break by age); use "
+            "priority_flood for this volume"
+        )
+    offsets = np.ascontiguousarray(offsets, dtype=np.int64)
+    markers = np.ascontiguousarray(markers, dtype=np.int64)
+    mask = np.ascontiguousarray(mask, dtype=np.uint8)
+    assert output.dtype == np.int32 and output.flags.c_contiguous
+    lib.bucket_flood_image(
+        _ptr(keys, ctypes.c_int32),
+        _ptr(offsets, ctypes.c_int64),
+        ctypes.c_int32(len(offsets)),
+        _ptr(markers, ctypes.c_int64),
+        ctypes.c_int64(len(markers)),
+        _ptr(mask, ctypes.c_uint8),
+        _ptr(output, ctypes.c_int32),
+        ctypes.c_int64(mask.size),
+    )
+    return output
+
+
+def edt3d(mask):
+    """Exact EDT (f64) of a 3D mask: distance to the nearest zero voxel.
+    Bit-identical to ``scipy.ndimage.distance_transform_edt``."""
+    lib = get_lib()
+    m = np.ascontiguousarray(mask, dtype=np.uint8)
+    assert m.ndim == 3
+    out = np.empty(m.shape, dtype=np.float64)
+    lib.edt3d(
+        _ptr(m, ctypes.c_uint8),
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+        ctypes.c_int64(m.shape[0]),
+        ctypes.c_int64(m.shape[1]),
+        ctypes.c_int64(m.shape[2]),
+    )
+    return out
 
 
 def label_cc6(mask):

@@ -1,9 +1,12 @@
-"""The claim-mode wavefront affinity flood in plain torch — the readable spec
-of the flood rule that ``ops/flood_kernel.py``'s CUDA kernel runs.
+"""The claim-mode wavefront floods in plain torch — the readable spec of the
+flood rules that the CUDA kernels run (``ops/flood_kernel.py`` for the
+affinity flood, ``ops/image_flood_kernel.py`` for the image flood).
 
 The port of ``iterseg_tpu/ops/device_flood.py``'s ``mode="claim"``
-recurrence (``hop_ties=False``), an approximation of the sequential heap
-flood (claim-at-push, reference ``watershed.py:95-159``):
+recurrences, approximations of the sequential heap flood (claim-at-push,
+reference ``watershed.py:95-159``).
+
+**Affinity flood** (``hop_ties=False``):
 
 - Each free voxel ``u`` (in the mask, not a seed) looks at its 6 face
   neighbours ``v`` that carry a label and picks the one with the smallest
@@ -20,15 +23,27 @@ flood (claim-at-push, reference ``watershed.py:95-159``):
 - Seeds start at ``d = 0`` with claimant key ``-inf`` and never change;
   voxels outside the mask never carry a label.
 
-Every step updates every voxel at once (Jacobi), so the recurrence is
-deterministic; the per-voxel key only decreases over a finite set, so it
-terminates. Its fixed point equals JAX ``wavefront_flood_jit(mode="claim")``
-bit for bit.
+**Image flood** (skimage's node-keyed ``watershed(values, markers, mask)``,
+the DoG path's flood on −EDT; JAX ``wavefront_image_flood_jit``, which runs
+the recurrence with ``hop_ties=True``). Three differences:
+
+- seeds start at their own value, ``d0 = values[seed]``;
+- the weight entering ``u`` is ``values[u]`` from every direction;
+- a third state array ``h`` counts hops since the virtual time last rose,
+  and keys are ``(d, h, idx)``, compared in that order. A claim sets
+  ``h_u = 0`` when ``max(best_d, values[u]) > best_d``, else
+  ``best_h + 1``: on an equal-value plateau the heap's FIFO age order is a
+  BFS from the plateau's entry fronts, which the hop count tracks.
+
+Every step updates every voxel at once (Jacobi), so the recurrences are
+deterministic; the per-voxel key only decreases over a finite set, so they
+terminate. Their fixed points equal JAX ``wavefront_flood_jit(mode=
+"claim")`` and ``wavefront_image_flood_jit(mode="claim")`` bit for bit.
 
 The state lives on padded arrays (one voxel of ring: ``d = inf``,
-``lab = 0``), so a step reads its neighbours as slices; ``_claim_step``
-also serves the tile-local relaxation of ``flood_kernel``'s plain version,
-where leading dimensions index tiles.
+``lab = 0``, ``h = 0``), so a step reads its neighbours as slices; the
+step functions also serve the tile-local relaxation of the kernels' plain
+versions, where leading dimensions index tiles.
 """
 from __future__ import annotations
 
@@ -36,18 +51,21 @@ import numpy as np
 import torch
 
 __all__ = ["init_state", "edge_weights", "wavefront_flood",
-           "wavefront_affinity_flood"]
+           "wavefront_affinity_flood", "wavefront_image_flood_core",
+           "wavefront_image_flood"]
 
 _INF = float("inf")
 
 
-def init_state(seeds: torch.Tensor, mask: torch.Tensor):
+def init_state(seeds: torch.Tensor, mask: torch.Tensor, seed_values=None):
     """``(d, lab, ckd, cki, code)`` of the flood's start; code is uint8
-    (0 outside the mask, 1 free, 2 seed)."""
+    (0 outside the mask, 1 free, 2 seed). Seeds start at ``d = 0``, or at
+    ``seed_values`` (a float32 tensor of the mask's shape) when given."""
     mask = mask.to(torch.bool)
     lab = torch.where(mask, seeds.to(torch.int32), 0).to(torch.int32)
     seeded = lab > 0
-    d = torch.where(seeded, 0.0, _INF).to(torch.float32)
+    start = 0.0 if seed_values is None else seed_values.to(torch.float32)
+    d = torch.where(seeded, start, _INF).to(torch.float32)
     ckd = torch.where(seeded, -_INF, _INF).to(torch.float32)
     cki = torch.zeros_like(lab)
     code = torch.where(seeded, 2, mask.to(torch.uint8)).to(torch.uint8)
@@ -125,6 +143,94 @@ def _claim_step(d_pad, lab_pad, ckd, cki, weights, idx, offs, free):
     lab_new = torch.where(claim, best_lab, lab_pad[_INTERIOR])
     return (d_new, lab_new, torch.where(claim, best_kd, ckd),
             torch.where(claim, best_ki, cki), claim)
+
+
+def _image_claim_step(d_pad, lab_pad, h_pad, ckd, ckh, cki, values, idx,
+                      offs, free):
+    """One synchronous hop-tie claim update of the image flood on padded
+    state ``(d_pad, lab_pad, h_pad)``; the other arguments have the
+    interior's shape. Returns the new interior ``(d, lab, h, ckd, ckh,
+    cki)`` and the claim mask."""
+    best_kd = torch.full_like(ckd, _INF)
+    best_kh = torch.zeros_like(ckh)
+    best_ki = torch.zeros_like(cki)
+    best_lab = torch.zeros_like(cki)
+    for k, sl in enumerate(_NBR):
+        sl = (Ellipsis,) + sl
+        d_v, lab_v, h_v = d_pad[sl], lab_pad[sl], h_pad[sl]
+        idx_v = idx + offs[k]
+        better = (lab_v > 0) & (
+            (d_v < best_kd) | ((d_v == best_kd) & (
+                (h_v < best_kh) | ((h_v == best_kh) & (idx_v < best_ki)))))
+        best_kd = torch.where(better, d_v, best_kd)
+        best_kh = torch.where(better, h_v, best_kh)
+        best_ki = torch.where(better, idx_v, best_ki)
+        best_lab = torch.where(better, lab_v, best_lab)
+    claim = ((best_kd < ckd) | ((best_kd == ckd) & (
+        (best_kh < ckh) | ((best_kh == ckh) & (best_ki < cki))))) & free
+    d_claim = torch.maximum(best_kd, values)
+    # hop count: +1 within a value plateau, reset on a strict rise
+    h_claim = torch.where(d_claim > best_kd, 0, best_kh + 1).to(torch.int32)
+    return (torch.where(claim, d_claim, d_pad[_INTERIOR]),
+            torch.where(claim, best_lab, lab_pad[_INTERIOR]),
+            torch.where(claim, h_claim, h_pad[_INTERIOR]),
+            torch.where(claim, best_kd, ckd),
+            torch.where(claim, best_kh, ckh),
+            torch.where(claim, best_ki, cki), claim)
+
+
+def image_init_state(values, seeds, mask):
+    """``(d, lab, h, ckd, ckh, cki, code)`` of the image flood's start:
+    seeds at their own value, hop counts 0."""
+    d, lab, ckd, cki, code = init_state(seeds, mask, seed_values=values)
+    return d, lab, torch.zeros_like(lab), ckd, torch.zeros_like(cki), cki, code
+
+
+def wavefront_image_flood_core(values: torch.Tensor, seeds: torch.Tensor,
+                               mask: torch.Tensor, max_iters: int = 512):
+    """The synchronous hop-tie image recurrence on the tensors' device.
+
+    ``values`` (Z, Y, X) float, ``seeds`` (Z, Y, X) int (0 = unseeded),
+    ``mask`` (Z, Y, X) bool. Returns ``(labels int32, n_iters,
+    converged)``: ``n_iters`` counts the steps up to and including the
+    first step that claims nothing (``converged``), or ``max_iters``."""
+    values = values.to(torch.float32)
+    d, lab, h, ckd, ckh, cki, code = image_init_state(values, seeds, mask)
+    idx, offs = neighbour_index(mask.shape, values.device)
+    free = code == 1
+    d_pad, lab_pad, h_pad = pad_ring(d, _INF), pad_ring(lab, 0), pad_ring(h, 0)
+    for it in range(1, max_iters + 1):
+        d, lab, h, ckd, ckh, cki, claim = _image_claim_step(
+            d_pad, lab_pad, h_pad, ckd, ckh, cki, values, idx, offs, free)
+        if not bool(claim.any()):
+            return lab, it, True
+        d_pad[_INTERIOR] = d
+        lab_pad[_INTERIOR] = lab
+        h_pad[_INTERIOR] = h
+    return lab_pad[_INTERIOR].clone(), max_iters, False
+
+
+def wavefront_image_flood(values, marker_coords_or_seeds, mask,
+                          max_iters=512, device=None):
+    """NumPy-facing image flood. ``marker_coords_or_seeds``: an (n, ndim)
+    coordinate array (labels 1..n in row order) or a full int32 seed image.
+    Returns ``(labels int32, n_iters, converged)``."""
+    from ..device import resolve_device
+
+    dev = resolve_device(device)
+    mask = np.asarray(mask).astype(bool)
+    seeds = np.asarray(marker_coords_or_seeds)
+    if seeds.shape != mask.shape:  # (n, ndim) coordinates
+        coords = seeds
+        seeds = np.zeros(mask.shape, np.int32)
+        if len(coords):
+            seeds[tuple(coords.T)] = np.arange(1, len(coords) + 1,
+                                               dtype=np.int32)
+    lab, it, conv = wavefront_image_flood_core(
+        torch.as_tensor(np.asarray(values, np.float32), device=dev),
+        torch.as_tensor(seeds.astype(np.int32), device=dev),
+        torch.as_tensor(mask, device=dev), max_iters=max_iters)
+    return lab.cpu().numpy(), it, conv
 
 
 def wavefront_flood(affinities: torch.Tensor, seeds: torch.Tensor,

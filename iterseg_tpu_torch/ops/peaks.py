@@ -72,8 +72,10 @@ def _ensure_spacing(coords: np.ndarray, spacing: float) -> np.ndarray:
 def peak_local_max(image, threshold_abs=None, min_distance: int = 1,
                    exclude_border=True, device=None):
     """Peak coordinates, ordered and spaced exactly like skimage: an
-    (n_peaks, ndim) int array. A tensor runs on its own device; a numpy
-    image runs on ``device`` (CUDA by default)."""
+    (n_peaks, ndim) int array, for an image of any number of dimensions
+    (3D maps, the 4D DoG/LoG scale cube). ``exclude_border`` is a bool, an
+    int or one int per axis. A tensor runs on its own device; a numpy image
+    runs on ``device`` (CUDA by default)."""
     if isinstance(image, torch.Tensor):
         img_t = image
     else:
@@ -82,7 +84,10 @@ def peak_local_max(image, threshold_abs=None, min_distance: int = 1,
     img_np = img_t.cpu().numpy()
     if threshold_abs is None:
         threshold_abs = img_np.min()
-    mask = peak_candidate_mask(img_t, float(threshold_abs),
+    # the JAX package computes the mask on a device array, where float64
+    # is float32; the ordering below uses the image as given
+    mask_in = img_t.float() if img_t.dtype == torch.float64 else img_t
+    mask = peak_candidate_mask(mask_in, float(threshold_abs),
                                min_distance).cpu().numpy()
     if isinstance(exclude_border, bool):
         border = (min_distance if exclude_border else 0,) * img_np.ndim

@@ -1,10 +1,13 @@
 """Affinity watershed and the U-Net-output postprocessing pipeline.
 
-The port of ``iterseg_tpu/ops/watershed.py`` (affinity route):
+The port of ``iterseg_tpu/ops/watershed.py``:
 
 - ``affinity_watershed``: the seeded heap flood over a (ndim, *shape)
   affinity image — the native C++ kernel, with the pure-Python oracle as
   fallback (``py_func=True`` forces it);
+- ``image_watershed``: the seeded flood of a scalar priority image with
+  ``skimage.segmentation.watershed`` semantics (the DoG segmenter's flood
+  on −EDT), through the same native kernel and oracle fallback;
 - ``_prep_feature_maps``: per-channel max-normalise and pad the affinities,
   Gaussian σ=(0,1,1) on the centroid channel, Gaussian σ=2 and a 256-bin
   Otsu on the mask channel — on the tensors' device;
@@ -24,7 +27,7 @@ from .peaks import peak_local_max
 from .threshold import threshold_otsu
 from ..device import resolve_device
 
-__all__ = ["affinity_watershed", "segment_output_image"]
+__all__ = ["affinity_watershed", "image_watershed", "segment_output_image"]
 
 
 def affinity_watershed(image, marker_coords, mask, scale=None, out=None,
@@ -76,6 +79,36 @@ def affinity_watershed(image, marker_coords, mask, scale=None, out=None,
             image, marker_coords, mask, output=output, scale=scale
         )
     return output.reshape(shape)
+
+
+def image_watershed(image, markers, mask, py_func=False):
+    """Seeded watershed on a scalar priority image:
+    ``skimage.segmentation.watershed(image, markers, mask=mask)`` parity
+    (connectivity 1, compactness 0, no watershed line)."""
+    from .. import native
+
+    image = np.asarray(image, dtype=np.float32)
+    markers = np.asarray(markers)
+    mask = np.asarray(mask).astype(bool)
+    if py_func:
+        return oracle.image_flood_py(image, markers, mask)
+    pad_img = np.pad(image, 1, constant_values=0)
+    pad_mask = np.pad(mask, 1, constant_values=False)
+    pad_markers = np.pad(markers, 1, constant_values=0)
+    output = np.where(pad_mask, pad_markers, 0).astype(np.int32).ravel()
+    marker_locations = np.flatnonzero(output).astype(np.int64)
+    img_r = pad_img.ravel()
+    offsets, _ = oracle.neighbor_offsets(pad_img.shape)
+    val_chan = np.zeros(len(offsets), dtype=np.int64)
+    try:
+        native.priority_flood(
+            img_r[None], offsets, val_chan, offsets, marker_locations,
+            img_r[marker_locations], pad_mask.ravel(), output,
+        )
+    except native.NativeUnavailable:
+        return oracle.image_flood_py(image, markers, mask)
+    out = output.reshape(pad_img.shape)
+    return out[(slice(1, -1),) * pad_img.ndim]
 
 
 def _prep_feature_maps(affinities: torch.Tensor, centroids_img: torch.Tensor,

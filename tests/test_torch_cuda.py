@@ -1,5 +1,5 @@
-"""Tests of the port that need a CUDA card: the hand-written kernels have no
-CPU mode. Every test carries the ``cuda`` marker and skips without a card.
+"""Tests of the port that need a CUDA card: the hand-written kernels (the
+affinity and the image flood) have no CPU mode. Every test carries the ``cuda`` marker and skips without a card.
 This file imports neither JAX nor ``iterseg_tpu``, so it also runs on a GPU
 machine that has only torch:
 
@@ -11,6 +11,7 @@ import torch
 from scipy import ndimage as ndi
 
 from iterseg_tpu_torch.ops import flood_kernel as fk
+from iterseg_tpu_torch.ops import image_flood_kernel as ifk
 
 pytestmark = pytest.mark.cuda
 
@@ -98,5 +99,68 @@ def test_fast_path_equals_generic_on_card(cuda):
     np.testing.assert_array_equal(fast, generic)
     pallas = AffinityPipeline(model, chunk, margin,
                               device_flood="pallas").segment(vol)
+    np.testing.assert_array_equal(pallas > 0, fast > 0)
+    assert set(np.unique(pallas)) == set(np.unique(fast))
+
+
+def edt_case(shape=(16, 48, 48), n=25, seed=0):
+    """The DoG path's flood landscape: blobs -> mask, values = -EDT,
+    labelled markers at the distance peaks."""
+    r = np.random.default_rng(seed)
+    vol = np.zeros(shape, np.float32)
+    pts = np.stack([r.integers(3, s - 3, size=n) for s in shape], 1)
+    vol[tuple(pts.T)] = 1.0
+    vol = ndi.gaussian_filter(vol, (1.0, 2.0, 2.0))
+    vol /= vol.max()
+    mask = vol > 0.15
+    dist = ndi.distance_transform_edt(mask)
+    peaks = np.argwhere((dist == ndi.maximum_filter(dist, size=3)) & mask)
+    markers = np.zeros(shape, np.int32)
+    markers[tuple(peaks.T)] = 1
+    markers, _ = ndi.label(markers)
+    return (-dist).astype(np.float32), markers.astype(np.int32), mask
+
+
+@pytest.mark.parametrize("inner_cap", [1, 4])
+@pytest.mark.parametrize("shape", [(16, 48, 48), (13, 37, 45)])
+def test_image_kernel_equals_plain(cuda, shape, inner_cap):
+    inputs = tuple(torch.from_numpy(x).to(cuda)
+                   for x in edt_case(shape=shape, seed=len(shape) + shape[1]))
+    before = ifk.launches()
+    got, n, conv = ifk.image_flood(*inputs, inner_cap=inner_cap)
+    want, n_plain, conv_plain = ifk.image_flood_plain(*inputs,
+                                                      inner_cap=inner_cap)
+    torch.cuda.synchronize()
+    assert ifk.launches() > before
+    assert conv and conv_plain and n == n_plain
+    assert torch.equal(got, want)
+    part, n2, conv2 = ifk.image_flood(*inputs, max_launches=2,
+                                      inner_cap=inner_cap)
+    plain2, _, _ = ifk.image_flood_plain(*inputs, max_launches=2,
+                                         inner_cap=inner_cap)
+    assert n2 == 2 and not conv2 and torch.equal(part, plain2)
+
+
+def test_dog_fast_path_and_pallas_on_card(cuda):
+    from iterseg_tpu_torch.engine.device_pipeline import DoGPipeline
+    from iterseg_tpu_torch.engine.segmentation import (
+        dog_blob_watershed_for_chunks)
+
+    r = np.random.default_rng(3)
+    vol = np.zeros((12, 48, 48), np.float32)
+    pts = np.stack([r.integers(3, s - 3, size=16) for s in vol.shape], 1)
+    vol[tuple(pts.T)] = 1.0
+    vol = ndi.gaussian_filter(vol, (1, 2, 2))
+    vol /= vol.max()
+    fast = DoGPipeline().segment(vol)
+    host = np.zeros(fast.shape, np.int32)
+    dog_blob_watershed_for_chunks(vol, host, None, None, 1, 1.5, 0.02,
+                                  use_device_pipeline=False)
+    np.testing.assert_array_equal(fast, host)
+    np.testing.assert_array_equal(
+        fast, DoGPipeline(device=torch.device("cpu")).segment(vol))
+    before = ifk.launches()
+    pallas = DoGPipeline(device_flood="pallas").segment(vol)
+    assert ifk.launches() > before
     np.testing.assert_array_equal(pallas > 0, fast > 0)
     assert set(np.unique(pallas)) == set(np.unique(fast))

@@ -1,7 +1,6 @@
 """The port stands alone: it imports without JAX, no module of it (nor
 chip_smoke.py) imports ``iterseg_tpu``, and its entry points need CUDA
 unless the caller names another device."""
-import os
 import pathlib
 import re
 import subprocess
@@ -31,6 +30,12 @@ def test_imports_with_jax_blocked():
         "import iterseg_tpu_torch as p\n"
         "assert callable(p.affinity_unet_watershed)\n"
         "assert 'affinity-unet-watershed' in p.segmenters\n"
+        "assert callable(p.dog_blob_watershed)\n"
+        "assert 'DoG-blob-watershed' in p.segmenters\n"
+        "assert p.segmenters['DoG-blob-watershed'] is p.dog_blob_watershed\n"
+        "for name in ('unet_mask', 'otsu_mask', 'blob_watershed', "
+        "'DoGPipeline'):\n"
+        "    assert callable(getattr(p, name)), name\n"
         "bad = [m for m in sys.modules if m == 'iterseg_tpu' or "
         "m.startswith('iterseg_tpu.')]\n"
         "assert not bad, bad\n"
@@ -58,7 +63,8 @@ def test_no_jax_or_reference_imports(path):
 
 def test_default_device_needs_cuda():
     from iterseg_tpu_torch.device import resolve_device
-    from iterseg_tpu_torch.engine.segmentation import affinity_unet_watershed
+    from iterseg_tpu_torch.engine.segmentation import (
+        affinity_unet_watershed, dog_blob_watershed)
 
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -67,6 +73,9 @@ def test_default_device_needs_cuda():
     with pytest.raises(RuntimeError, match="CUDA"):
         affinity_unet_watershed(None, np.ones((10, 32, 32), np.uint16),
                                 debug=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dog_blob_watershed(None, np.ones((10, 32, 32), np.uint16),
+                           debug=True)
     assert resolve_device("cpu") == torch.device("cpu")
 
 
