@@ -13,29 +13,33 @@ toolkit (``nvcc``) and ``g++``. It imports nothing of JAX or of
 2. kernel vs plain: the CUDA affinity flood and its plain torch version on a
    seeded smooth (33, 256, 256) fixture, and the CUDA image flood and its
    plain version on a seeded −EDT (33, 256, 256) fixture, ``inner_cap`` 1
-   and 4 — labels equal bit for bit, the same launch count, converged;
+   and 4 — labels equal bit for bit, the same step count and the same
+   tile-steps as the plain frontier schedule, converged, two kernel
+   launches (init and the one persistent step kernel) per flood;
 3. forward parity: one (10, 256, 256) chunk through the full-width U-Net
    (``iterseg_tpu/data/default_unet.npz``, ~10.0 M parameters) on the card
    with TF32 off and on the CPU, max-abs <= 5e-4;
 4. the main path on one (33, 512, 512) uint16 volume through
    ``affinity_unet_watershed`` with ``device_flood=False`` (exact host
-   flood) and ``"pallas"`` (the CUDA flood): the kernel launched, no flood
-   fell back, the native host library loaded, equal label support and id
-   sets, agreement >= 0.9; plus the fast path against the generic
-   ``predict_volume`` + ``segment_output_image`` path, bit-equal;
+   flood) and ``"pallas"`` (the CUDA flood): two kernel launches per
+   flood, no flood fell back, the native host library loaded, equal label
+   support and id sets, agreement >= 0.9; plus the fast path against the
+   generic ``predict_volume`` + ``segment_output_image`` path, bit-equal;
 5. a (2, 33, 256, 256) stack through ``segment_stack``: every frame labelled;
 6. the DoG path on the same (33, 512, 512) uint16 volume through
    ``dog_blob_watershed`` with ``device_flood=False`` (exact host bucket
-   flood) and ``"pallas"`` (the CUDA image flood): the image kernel
-   launched, no flood fell back, no warning, the native library loaded,
-   equal label support and id sets, agreement >= 0.9; plus, on a (33, 256,
+   flood) and ``"pallas"`` (the CUDA image flood): two image kernel
+   launches per flood, no flood fell back, no warning, the native library
+   loaded, equal label support and id sets, agreement >= 0.9; plus, on a (33, 256,
    256) float volume, the card's ``DoGPipeline`` against the host path and
    against the port's own CPU run, bit-equal;
 7. a (2, 33, 256, 256) stack through ``dog_blob_watershed``: every frame
    labelled;
 8. the ``kernels`` line: each hand-written kernel timed on the inputs its
-   path gave it, against its plain version, with its launches on its path
-   and its bound.
+   path gave it, against its plain version, with its launches on its path,
+   its steps and tile-steps (equal to the plain frontier schedule's), the
+   split of its time into the init kernel and the step kernel, and its
+   bound.
 
 Then the card's name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -142,6 +146,44 @@ def cuda_ms(fn, reps=3):
     return start.elapsed_time(end) / reps
 
 
+def split_ms(fn, reps=3):
+    """Mean ``setup_ms`` (init kernel) and ``steps_ms`` (step kernel) that
+    ``fn(stats)`` reports over ``reps`` runs after one warm-up."""
+    fn({})
+    runs = []
+    for _ in range(reps):
+        runs.append({})
+        fn(runs[-1])
+    return {k: sum(r[k] for r in runs) / reps
+            for k in ("setup_ms", "steps_ms")}
+
+
+def kernel_vs_plain(flood, plain, launches, inputs, what, **kw):
+    """One flood through the kernel, its plain version (the full sweep) and
+    the plain frontier schedule: labels and steps equal to the full sweep,
+    tile-steps equal to the frontier's, converged, two launches. Returns
+    the labels and a row of the numbers."""
+    before = launches()
+    stats, frontier = {}, {}
+    lk, nk, ck = flood(*inputs, stats=stats, **kw)
+    n_launched = launches() - before
+    lp, np_, cp = plain(*inputs, **kw)
+    plain(*inputs, stats=frontier, **kw)
+    err = int((lk.long() - lp.long()).abs().max()) if lk.numel() else 0
+    check(err == 0, f"{what} kernel differs from plain by {err} ({kw})")
+    check(nk == np_ and ck and cp,
+          f"{what} steps {nk} vs {np_}, converged {ck} {cp}")
+    check(stats["tile_steps"] == frontier["tile_steps"]
+          and frontier["missed"] == 0,
+          f"{what} tile-steps {stats} vs {frontier}")
+    check(n_launched == 2, f"{what} made {n_launched} launches, not 2")
+    return lk, {"inner_cap": kw["inner_cap"], "steps": nk,
+                "launches": n_launched, "tile_steps": stats["tile_steps"],
+                "tiles": frontier["tiles"],
+                "tiles_per_step": frontier["lists"], "max_abs_err": err,
+                "tolerance": 0}
+
+
 def main():
     import torch
 
@@ -190,19 +232,15 @@ def main():
                         for x in smooth_fixture((33, 256, 256), 400, 0))
     rows = []
     for cap in (1, 4):
-        lk, nk, ck = fk.affinity_flood(aff, seeds, mask, inner_cap=cap)
-        lp, np_, cp = fk.affinity_flood_plain(aff, seeds, mask,
-                                              inner_cap=cap)
-        check(torch.equal(lk, lp), f"kernel != plain at inner_cap={cap}")
-        check(nk == np_ and ck and cp,
-              f"launches {nk} vs {np_}, converged {ck} {cp}")
-        rows.append({
-            "inner_cap": cap, "launches": nk, "equal": True, "tolerance": 0,
+        lk, row = kernel_vs_plain(fk.affinity_flood, fk.affinity_flood_plain,
+                                  fk.launches, (aff, seeds, mask),
+                                  "affinity", inner_cap=cap)
+        rows.append(dict(row, **{
             "ms": cuda_ms(lambda: fk.affinity_flood(aff, seeds, mask,
                                                     inner_cap=cap)),
             "plain_ms": cuda_ms(lambda: fk.affinity_flood_plain(
                 aff, seeds, mask, inner_cap=cap), reps=1),
-        })
+        }))
     emit({"phase": "kernel_vs_plain", "shape": list(mask.shape),
           "labelled": int((lk > 0).sum()), "seeds": int(seeds.max()),
           "runs": rows})
@@ -210,19 +248,15 @@ def main():
                               for x in edt_fixture((33, 256, 256), 250, 0))
     rows = []
     for cap in (1, 4):
-        lk, nk, ck = ifk.image_flood(values, markers, emask, inner_cap=cap)
-        lp, np_, cp = ifk.image_flood_plain(values, markers, emask,
-                                            inner_cap=cap)
-        check(torch.equal(lk, lp), f"image kernel != plain at {cap}")
-        check(nk == np_ and ck and cp,
-              f"image launches {nk} vs {np_}, converged {ck} {cp}")
-        rows.append({
-            "inner_cap": cap, "launches": nk, "equal": True, "tolerance": 0,
+        lk, row = kernel_vs_plain(ifk.image_flood, ifk.image_flood_plain,
+                                  ifk.launches, (values, markers, emask),
+                                  "image", inner_cap=cap)
+        rows.append(dict(row, **{
             "ms": cuda_ms(lambda: ifk.image_flood(values, markers, emask,
                                                   inner_cap=cap)),
             "plain_ms": cuda_ms(lambda: ifk.image_flood_plain(
                 values, markers, emask, inner_cap=cap), reps=1),
-        })
+        }))
     emit({"phase": "image_kernel_vs_plain", "shape": list(emask.shape),
           "labelled": int((lk > 0).sum()), "seeds": int(markers.max()),
           "runs": rows})
@@ -283,7 +317,8 @@ def main():
     fk.affinity_flood = flood
     dp.AffinityPipeline.segment = segment
     host, pallas = runs["host"][0], runs["pallas"][0]
-    check(main_launches > 0, "the CUDA flood never launched")
+    check(captured and main_launches == 2 * len(captured),
+          f"{main_launches} kernel launches for {len(captured)} floods")
     check(dp.flood_fallbacks() == 0, "the device flood fell back")
     check(native.loaded(), "the native host flood did not load")
     check(host.shape == vol.shape and host.dtype == np.int32,
@@ -304,7 +339,8 @@ def main():
     check(np.array_equal(fast, generic), "fast path != generic path")
     emit({"phase": "main_path", "shape": list(vol.shape),
           "objects": int(host.max()), "labelled_frac": float(sel.mean()),
-          "agreement": agreement, "flood_launches": main_launches,
+          "agreement": agreement, "kernel_launches": main_launches,
+          "floods": len(captured),
           "flood_fallbacks": dp.flood_fallbacks(),
           "fast_equals_generic": True,
           "seconds": {k: v[1] for k, v in runs.items()},
@@ -362,7 +398,9 @@ def main():
     ifk.image_flood = image_flood
     dp.DoGPipeline.segment = dog_segment
     host, pallas = dog_runs["host"][0], dog_runs["pallas"][0]
-    check(dog_launches > 0, "the CUDA image flood never launched")
+    check(image_captured and dog_launches == 2 * len(image_captured),
+          f"{dog_launches} image kernel launches for "
+          f"{len(image_captured)} floods")
     check(dog_fallbacks == 0, "the device image flood fell back")
     check(not [w for w in caught if issubclass(w.category, RuntimeWarning)],
           f"warnings: {[str(w.message) for w in caught]}")
@@ -394,7 +432,8 @@ def main():
     check(np.array_equal(fast, on_cpu), "DoG labels: card != CPU")
     emit({"phase": "dog_path", "shape": list(vol.shape),
           "objects": int(host.max()), "labelled_frac": float(sel.mean()),
-          "agreement": dog_agreement, "image_flood_launches": dog_launches,
+          "agreement": dog_agreement, "image_kernel_launches": dog_launches,
+          "floods": len(image_captured),
           "flood_fallbacks": dog_fallbacks, "runtime_warnings": 0,
           "fast_equals_host": True, "card_equals_cpu": True,
           "small_shape": list(small.shape), "small_card_s": fast_s,
@@ -417,80 +456,54 @@ def main():
 
     # 8. each kernel on its path's own inputs
     kernels = []
-    (k_aff, k_seeds, k_mask), k_kw = captured[-1][0][:3], captured[-1][1]
-    lk, nk, ck = fk.affinity_flood(k_aff, k_seeds, k_mask, **k_kw)
-    lp, np_, cp = fk.affinity_flood_plain(k_aff, k_seeds, k_mask, **k_kw)
-    check(ck and cp and nk == np_,
-          f"launches {nk} vs {np_}, converged {ck} {cp}")
-    err = int((lk.long() - lp.long()).abs().max())
-    check(err == 0, f"kernel differs from plain by {err}")
-    # least time for this flood: its inputs (affinities, seeds, mask) read
-    # once and its labels written once, or the claim steps its free voxels
-    # need at the card's f32 rate, whichever is larger
-    voxels = k_mask.numel()
-    io_s = (3 * 4 + 4 + 1 + 4) * voxels / HBM_BYTES_PER_S
-    free = int((k_mask & (k_seeds == 0)).sum())
-    ops_s = (fk.OPS_PER_FREE_VOXEL_STEP * free * nk * k_kw["inner_cap"]
-             / F32_OPS_PER_S)
-    kernels.append({
-        "name": "affinity_flood",
-        "route": "cuda",
-        "source": "iterseg_tpu_torch/csrc/affinity_flood.cu",
-        "replaces": "iterseg_tpu/ops/pallas_flood.py:84",
-        "launches": main_launches,
-        "shape": list(k_mask.shape),
-        "flood_launches": nk,
-        "max_abs_err": err,
-        "tolerance": 0,
-        "ms": cuda_ms(lambda: fk.affinity_flood(k_aff, k_seeds, k_mask,
-                                                **k_kw)),
-        "plain_ms": cuda_ms(lambda: fk.affinity_flood_plain(
-            k_aff, k_seeds, k_mask, **k_kw), reps=1),
-        "bound_ms": max(io_s, ops_s) * 1e3,
-        "bound_by": "bytes" if io_s >= ops_s else "operations",
-        # the state traffic of the kernel's own schedule, for comparison
-        "schedule_bound_ms": fk.BYTES_PER_VOXEL_LAUNCH * voxels * nk
-        / HBM_BYTES_PER_S * 1e3,
-        "free_voxels": free,
-        "library_ms": None,
-    })
-    (i_val, i_seeds, i_mask), i_kw = (image_captured[-1][0][:3],
-                                      image_captured[-1][1])
-    lk, nk, ck = ifk.image_flood(i_val, i_seeds, i_mask, **i_kw)
-    lp, np_, cp = ifk.image_flood_plain(i_val, i_seeds, i_mask, **i_kw)
-    check(ck and cp and nk == np_,
-          f"image launches {nk} vs {np_}, converged {ck} {cp}")
-    err = int((lk.long() - lp.long()).abs().max())
-    check(err == 0, f"image kernel differs from plain by {err}")
-    # least time: values (f32), seeds (i32) and mask (bool) read once and
-    # labels (i32) written once, or the free voxels' claim steps at the f32
-    # rate, whichever is larger
-    voxels = i_mask.numel()
-    io_s = (4 + 4 + 1 + 4) * voxels / HBM_BYTES_PER_S
-    free = int((i_mask & (i_seeds == 0)).sum())
-    ops_s = (ifk.OPS_PER_FREE_VOXEL_STEP * free * nk * i_kw["inner_cap"]
-             / F32_OPS_PER_S)
-    kernels.append({
-        "name": "image_flood",
-        "route": "cuda",
-        "source": "iterseg_tpu_torch/csrc/image_flood.cu",
-        "replaces": "iterseg_tpu/ops/pallas_flood.py:359",
-        "launches": dog_launches,
-        "shape": list(i_mask.shape),
-        "flood_launches": nk,
-        "max_abs_err": err,
-        "tolerance": 0,
-        "ms": cuda_ms(lambda: ifk.image_flood(i_val, i_seeds, i_mask,
-                                              **i_kw)),
-        "plain_ms": cuda_ms(lambda: ifk.image_flood_plain(
-            i_val, i_seeds, i_mask, **i_kw), reps=1),
-        "bound_ms": max(io_s, ops_s) * 1e3,
-        "bound_by": "bytes" if io_s >= ops_s else "operations",
-        "schedule_bound_ms": ifk.BYTES_PER_VOXEL_LAUNCH * voxels * nk
-        / HBM_BYTES_PER_S * 1e3,
-        "free_voxels": free,
-        "library_ms": None,
-    })
+    for name, mod, flood, plain, calls, path_launches, line, in_bytes in (
+            ("affinity_flood", fk, fk.affinity_flood,
+             fk.affinity_flood_plain, captured, main_launches, 84,
+             3 * 4 + 4 + 1 + 4),
+            ("image_flood", ifk, ifk.image_flood, ifk.image_flood_plain,
+             image_captured, dog_launches, 359, 4 + 4 + 1 + 4)):
+        inputs, kw = calls[-1][0][:3], calls[-1][1]
+        mask = inputs[2]
+        _, row = kernel_vs_plain(flood, plain, mod.launches, inputs, name,
+                                 **kw)
+        # least time for this flood: its inputs (affinities or values,
+        # seeds, mask) read once and its labels written once, or the claim
+        # steps its free voxels need at the card's f32 rate, whichever is
+        # larger
+        voxels = mask.numel()
+        io_s = in_bytes * voxels / HBM_BYTES_PER_S
+        free = int((mask & (inputs[1] <= 0)).sum())
+        ops_s = (mod.OPS_PER_FREE_VOXEL_STEP * free * row["steps"]
+                 * kw["inner_cap"] / F32_OPS_PER_S)
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"iterseg_tpu_torch/csrc/{name}.cu",
+            "header": "iterseg_tpu_torch/csrc/flood_schedule.cuh",
+            "replaces": f"iterseg_tpu/ops/pallas_flood.py:{line}",
+            "launches": path_launches,
+            "shape": list(mask.shape),
+            "tile": list(mod.TILE),
+            "steps": row["steps"],
+            "tile_steps": row["tile_steps"],
+            "tiles": row["tiles"],
+            "tiles_per_step": row["tiles_per_step"],
+            "max_abs_err": row["max_abs_err"],
+            "tolerance": 0,
+            "ms": cuda_ms(lambda: flood(*inputs, **kw)),
+            **split_ms(lambda st: flood(*inputs, stats=st, **kw)),
+            "plain_ms": cuda_ms(lambda: plain(*inputs, **kw), reps=1),
+            "bound_ms": max(io_s, ops_s) * 1e3,
+            "bound_by": "bytes" if io_s >= ops_s else "operations",
+            # the traffic of the kernel's own schedule: the init pass, and
+            # the halo'd tiles the frontier processed
+            "schedule_bound_ms": (mod.INIT_BYTES_PER_VOXEL * voxels
+                                  + mod.BYTES_PER_TILE_STEP
+                                  * row["tile_steps"])
+            / HBM_BYTES_PER_S * 1e3,
+            "free_voxels": free,
+            "library_ms": None,
+        })
     emit({"kernels": kernels})
     print(gpu_line(), flush=True)
     # the run drives one card, whatever else the host shows

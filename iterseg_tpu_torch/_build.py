@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import hashlib
 import os
+import re
 import subprocess
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
@@ -23,15 +24,47 @@ def build_dir() -> str:
     return d
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def source_files(src: str):
+    """``src`` and every header it includes with ``#include "..."``,
+    directly or through another header, resolved beside the including file
+    (as the compiler resolves them); each once, ``src`` first. A name not
+    found there (a header on the compiler's own path) is left out."""
+    files, todo = [], [os.path.abspath(src)]
+    while todo:
+        path = todo.pop(0)
+        if path in files or not os.path.exists(path):
+            continue
+        files.append(path)
+        with open(path, "rb") as f:
+            text = f.read()
+        here = os.path.dirname(path)
+        todo += [os.path.abspath(os.path.join(here, name.decode()))
+                 for name in _LOCAL_INCLUDE.findall(text)]
+    return files
+
+
+def digest(src: str, cmd_prefix) -> str:
+    """Hash of the command, ``src`` and the local headers it includes: an
+    edit to any of them names a new library, so it is rebuilt."""
+    h = hashlib.sha256(repr(cmd_prefix).encode())
+    for path in source_files(src):
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return h.hexdigest()
+
+
 def build_library(src: str, stem: str, cmd_prefix) -> str:
     """Compile ``src`` into a shared library named after ``stem`` and the
-    hash of the source and command, unless it is already built; returns the
-    library's path. ``cmd_prefix`` is the compiler command without the
-    source and output arguments. Raises ``CalledProcessError`` or
-    ``FileNotFoundError`` when the compiler fails or is missing."""
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + repr(cmd_prefix).encode())
-    lib = os.path.join(build_dir(), f"{stem}-{digest.hexdigest()[:12]}.so")
+    ``digest`` of the command, the source and its local headers, unless it
+    is already built; returns the library's path. ``cmd_prefix`` is the
+    compiler command without the source and output arguments. Raises
+    ``CalledProcessError`` or ``FileNotFoundError`` when the compiler fails
+    or is missing."""
+    name = f"{stem}-{digest(src, cmd_prefix)[:12]}.so"
+    lib = os.path.join(build_dir(), name)
     if os.path.exists(lib):
         return lib
     tmp = f"{lib}.{os.getpid()}.tmp"

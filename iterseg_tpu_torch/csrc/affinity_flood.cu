@@ -12,178 +12,168 @@
 // caller passes. Every row-major embedding orders voxels alike, so ties
 // break as in the JAX recurrence and the Pallas kernel.
 //
-// Schedule. TPU grids run in order, and the Pallas kernel's cross-tile
-// Gauss-Seidel sweep relies on it; CTAs here run in no order. So the state
-// is double-buffered (A -> B) and every launch is deterministic:
-//  * one CTA per (TZ, TY, TX) = (4, 8, 32) tile, one thread per voxel;
-//  * the CTA loads d and lab of the tile plus a 1-voxel halo from A into
-//    shared memory; each thread keeps its own voxel's claimant key, code
-//    and six entering weights in registers;
-//  * it applies the claim rule up to inner_cap times to the interior only
-//    (Jacobi inside the tile, halo frozen, a barrier between steps) and
-//    writes the free voxels' state to B;
-//  * flags[launch] is set when any voxel of any tile claimed; the host
-//    swaps A and B and relaunches until a flag stays 0.
-// With inner_cap = 1 a launch is exactly one step of the synchronous
-// recurrence, so the labels equal JAX wavefront_flood_jit(mode="claim")
-// bit for bit. Voxels that are not free never change, so both buffers hold
-// them from the start and the kernel never rewrites them.
+// Schedule: flood_schedule.cuh (its note gives the frontier of active
+// tiles, the persistent cooperative launch and why skipping tiles is
+// exact). TPU grids run in order, and the Pallas kernel's cross-tile
+// Gauss-Seidel sweep relies on it; CTAs here run in no order, so the state
+// is double-buffered and every step is deterministic. This file holds only
+// the state layout and the claim rule:
+//  * state words per voxel: d (f32 bits), lab, ckd (f32 bits), cki; d and
+//    lab go through the shared halo'd tile, the claimant key, the code and
+//    the six entering weights stay in registers;
+//  * seeds start at d = 0 with claimant key -inf.
+// With inner_cap = 1 a step is exactly one step of the synchronous
+// recurrence, so the labels equal JAX wavefront_flood_jit(mode="claim") bit
+// for bit.
 //
-// After a launch that claimed nothing, B equals A; a launch that finds
-// flags[launch - 1] == 0 therefore returns at once, which lets the host
-// queue several launches between reads of the flags.
-//
-// Bound: memory. Per free voxel and launch the kernel reads d, lab
-// (through the shared tile), ckd, cki, code and the entering affinities,
-// and writes d, lab, ckd, cki: about 7 words read and 4 written, against a
-// few dozen integer and float compares. The shared tile loads each d and lab
-// once per CTA instead of once per neighbour (halo overhead (6*10*34) /
-// (4*8*32) = 2x on the two arrays), and threads along x read consecutive
-// words.
+// Bound: memory. A processed tile reads d and lab through its halo'd tile
+// ((4*10*34) / (2*8*32) = 2.7x the tile's words), and per free voxel ckd,
+// cki, code and the entering affinities, and writes d, lab, ckd, cki,
+// against a few dozen integer and float compares per voxel. The frontier
+// keeps that traffic to the tiles that can still change; the init pass
+// (about 22 B a voxel) is the floor of a flood.
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "flood_schedule.cuh"
 
 namespace {
 
-constexpr int TZ = 4, TY = 8, TX = 32;
+using flood::Schedule;
+using flood::Tile;
+using flood::Voxel;
 
-struct Best {
-  float kd;
-  int ki;
-  int lab;
-  float w;
+__device__ __forceinline__ float D(Tile* sh, int z, int y, int x) {
+  return __int_as_float(sh[0][z][y][x]);
+}
+
+struct AffinityRule {
+  struct Best {
+    float kd;
+    int ki;
+    int lab;
+    float w;
+  };
+
+  static __device__ __forceinline__ void consider(Best& b, float d_v,
+                                                  int lab_v, float w,
+                                                  int idx_v) {
+    bool better = lab_v > 0 &&
+                  (d_v < b.kd || (d_v == b.kd && idx_v < b.ki));
+    if (better) {
+      b.kd = d_v;
+      b.ki = idx_v;
+      b.lab = lab_v;
+      b.w = w;
+    }
+  }
+
+  static constexpr int kWords = 4;      // d, lab, ckd, cki
+  static constexpr int kHaloWords = 2;  // d, lab
+  struct Params {
+    const float* aff;  // (3, Z, Y, X)
+  };
+  struct Own {
+    float ckd;
+    int cki;
+    float w[6];
+  };
+
+  static __device__ __forceinline__ void start(int* w, int lab, bool seeded,
+                                               const Params&, long long) {
+    w[0] = __float_as_int(seeded ? 0.0f : INFINITY);
+    w[1] = lab;
+    w[2] = __float_as_int(seeded ? -INFINITY : INFINITY);
+    w[3] = 0;
+  }
+
+  static __device__ __forceinline__ void load(Own& o, const int* src,
+                                              long long N, const Voxel& v,
+                                              const Params& p,
+                                              const Schedule& s) {
+    const float* __restrict__ aff = p.aff;
+    const long long g = v.g, YX = (long long)s.Y * s.X;
+    o.ckd = __int_as_float(__ldcg(src + 2 * N + g));
+    o.cki = __ldcg(src + 3 * N + g);
+    o.w[0] = __ldg(aff + g);                                    // z-
+    o.w[1] = v.gz + 1 < s.Z ? __ldg(aff + g + YX) : INFINITY;   // z+
+    o.w[2] = __ldg(aff + N + g);                                // y-
+    o.w[3] = v.gy + 1 < s.Y ? __ldg(aff + N + g + s.X) : INFINITY;  // y+
+    o.w[4] = __ldg(aff + 2 * N + g);                            // x-
+    o.w[5] = v.gx + 1 < s.X ? __ldg(aff + 2 * N + g + 1) : INFINITY;  // x+
+  }
+
+  // The best labelled neighbour and the claim test.
+  static __device__ __forceinline__ bool best(Best& b, Tile* sh, const Own& o,
+                                              const Voxel& v,
+                                              const Schedule& s) {
+    const int lz = v.lz, ly = v.ly, lx = v.lx;
+    const int idx = (int)v.g, YX = s.Y * s.X, X = s.X;
+    b = Best{INFINITY, 0, 0, 0.0f};
+    consider(b, D(sh, lz - 1, ly, lx), sh[1][lz - 1][ly][lx], o.w[0],
+             idx - YX);
+    consider(b, D(sh, lz + 1, ly, lx), sh[1][lz + 1][ly][lx], o.w[1],
+             idx + YX);
+    consider(b, D(sh, lz, ly - 1, lx), sh[1][lz][ly - 1][lx], o.w[2],
+             idx - X);
+    consider(b, D(sh, lz, ly + 1, lx), sh[1][lz][ly + 1][lx], o.w[3],
+             idx + X);
+    consider(b, D(sh, lz, ly, lx - 1), sh[1][lz][ly][lx - 1], o.w[4],
+             idx - 1);
+    consider(b, D(sh, lz, ly, lx + 1), sh[1][lz][ly][lx + 1], o.w[5],
+             idx + 1);
+    return b.kd < o.ckd || (b.kd == o.ckd && b.ki < o.cki);
+  }
+
+  static __device__ __forceinline__ void apply(Tile* sh, Own& o, const Best& b,
+                                               const Voxel& v) {
+    // torch.maximum semantics: NaN propagates
+    const float d = (isnan(b.kd) || isnan(b.w)) ? NAN : fmaxf(b.kd, b.w);
+    sh[0][v.lz][v.ly][v.lx] = __float_as_int(d);
+    sh[1][v.lz][v.ly][v.lx] = b.lab;
+    o.ckd = b.kd;
+    o.cki = b.ki;
+  }
+
+  static __device__ __forceinline__ void store(int* dst, long long N,
+                                               const Voxel& v, Tile* sh,
+                                               const Own& o) {
+    dst[v.g] = sh[0][v.lz][v.ly][v.lx];
+    dst[N + v.g] = sh[1][v.lz][v.ly][v.lx];
+    dst[2 * N + v.g] = __float_as_int(o.ckd);
+    dst[3 * N + v.g] = o.cki;
+  }
 };
-
-__device__ __forceinline__ void consider(Best& b, float d_v, int lab_v,
-                                         float w, int idx_v) {
-  bool better = lab_v > 0 &&
-                (d_v < b.kd || (d_v == b.kd && idx_v < b.ki));
-  if (better) {
-    b.kd = d_v;
-    b.ki = idx_v;
-    b.lab = lab_v;
-    b.w = w;
-  }
-}
-
-__global__ void __launch_bounds__(TZ * TY * TX)
-flood_step(const float* __restrict__ d_in, const int* __restrict__ lab_in,
-           const float* __restrict__ ckd_in, const int* __restrict__ cki_in,
-           float* __restrict__ d_out, int* __restrict__ lab_out,
-           float* __restrict__ ckd_out, int* __restrict__ cki_out,
-           const uint8_t* __restrict__ code, const float* __restrict__ aff,
-           int Z, int Y, int X, int inner_cap, int* __restrict__ flags,
-           int launch) {
-  if (flags[launch - 1] == 0) return;  // converged: B already equals A
-
-  __shared__ float s_d[TZ + 2][TY + 2][TX + 2];
-  __shared__ int s_lab[TZ + 2][TY + 2][TX + 2];
-
-  const int tx = threadIdx.x, ty = threadIdx.y, tz = threadIdx.z;
-  const int tid = tx + TX * (ty + TY * tz);
-  const int x0 = blockIdx.x * TX, y0 = blockIdx.y * TY, z0 = blockIdx.z * TZ;
-  const long long YX = (long long)Y * X;
-  const long long N = YX * Z;
-
-  constexpr int HALO = (TZ + 2) * (TY + 2) * (TX + 2);
-  for (int i = tid; i < HALO; i += TZ * TY * TX) {
-    const int lx = i % (TX + 2);
-    const int ly = (i / (TX + 2)) % (TY + 2);
-    const int lz = i / ((TX + 2) * (TY + 2));
-    const int gx = x0 + lx - 1, gy = y0 + ly - 1, gz = z0 + lz - 1;
-    const bool in = gx >= 0 && gx < X && gy >= 0 && gy < Y && gz >= 0 &&
-                    gz < Z;
-    const long long g = (gz * (long long)Y + gy) * X + gx;
-    s_d[lz][ly][lx] = in ? d_in[g] : INFINITY;
-    s_lab[lz][ly][lx] = in ? lab_in[g] : 0;
-  }
-
-  const int gx = x0 + tx, gy = y0 + ty, gz = z0 + tz;
-  const bool in = gx < X && gy < Y && gz < Z;
-  const long long g = (gz * (long long)Y + gy) * X + gx;
-  const bool is_free = in && code[g] == 1;
-  float ckd = INFINITY, w[6];
-  int cki = 0;
-  const int idx = (int)g;
-  if (is_free) {
-    ckd = ckd_in[g];
-    cki = cki_in[g];
-    w[0] = aff[g];                                   // z-: aff[0] at u
-    w[1] = gz + 1 < Z ? aff[g + YX] : INFINITY;      // z+: aff[0] at u+ez
-    w[2] = aff[N + g];                               // y-: aff[1] at u
-    w[3] = gy + 1 < Y ? aff[N + g + X] : INFINITY;   // y+: aff[1] at u+ey
-    w[4] = aff[2 * N + g];                           // x-: aff[2] at u
-    w[5] = gx + 1 < X ? aff[2 * N + g + 1] : INFINITY;  // x+: aff[2] at u+ex
-  }
-  __syncthreads();
-
-  const int lz = tz + 1, ly = ty + 1, lx = tx + 1;
-  bool claimed_any = false;
-  for (int it = 0; it < inner_cap; ++it) {
-    bool claim = false;
-    Best b{INFINITY, 0, 0, 0.0f};
-    if (is_free) {
-      consider(b, s_d[lz - 1][ly][lx], s_lab[lz - 1][ly][lx], w[0],
-               idx - (int)YX);
-      consider(b, s_d[lz + 1][ly][lx], s_lab[lz + 1][ly][lx], w[1],
-               idx + (int)YX);
-      consider(b, s_d[lz][ly - 1][lx], s_lab[lz][ly - 1][lx], w[2], idx - X);
-      consider(b, s_d[lz][ly + 1][lx], s_lab[lz][ly + 1][lx], w[3], idx + X);
-      consider(b, s_d[lz][ly][lx - 1], s_lab[lz][ly][lx - 1], w[4], idx - 1);
-      consider(b, s_d[lz][ly][lx + 1], s_lab[lz][ly][lx + 1], w[5], idx + 1);
-      claim = b.kd < ckd || (b.kd == ckd && b.ki < cki);
-    }
-    // every thread has read its neighbours before any writes its own voxel
-    const int any = __syncthreads_or(claim);
-    if (claim) {
-      // torch.maximum semantics: NaN propagates
-      s_d[lz][ly][lx] = (isnan(b.kd) || isnan(b.w)) ? NAN : fmaxf(b.kd, b.w);
-      s_lab[lz][ly][lx] = b.lab;
-      ckd = b.kd;
-      cki = b.ki;
-    }
-    if (!any) break;
-    claimed_any = true;
-    __syncthreads();
-  }
-
-  if (is_free) {
-    d_out[g] = s_d[lz][ly][lx];
-    lab_out[g] = s_lab[lz][ly][lx];
-    ckd_out[g] = ckd;
-    cki_out[g] = cki;
-  }
-  if (claimed_any && tid == 0) flags[launch] = 1;
-}
 
 }  // namespace
 
 extern "C" {
 
-// One launch of the flood on `stream`: reads state A, writes state B,
-// reads flags[launch - 1] and sets flags[launch] when anything claimed.
-// Returns cudaGetLastError() of the launch (0 on success).
-int affinity_flood_launch(const float* d_in, const int* lab_in,
-                          const float* ckd_in, const int* cki_in,
-                          float* d_out, int* lab_out, float* ckd_out,
-                          int* cki_out, const uint8_t* code, const float* aff,
-                          int Z, int Y, int X, int inner_cap, int* flags,
-                          int launch, void* stream) {
-  dim3 block(TX, TY, TZ);
-  dim3 grid((X + TX - 1) / TX, (Y + TY - 1) / TY, (Z + TZ - 1) / TZ);
-  flood_step<<<grid, block, 0, (cudaStream_t)stream>>>(
-      d_in, lab_in, ckd_in, cki_in, d_out, lab_out, ckd_out, cki_out, code,
-      aff, Z, Y, X, inner_cap, flags, launch);
-  return (int)cudaGetLastError();
+// The init kernel on `stream`: the start state into both buffers of `state`
+// ((2, 4, Z, Y, X) int32 words), `code`, and the first worklist in `work`
+// (3 + 5 * n_tiles int32). `aff` is unused: every flood's init takes its
+// input. Returns the CUDA error of the launch (0 on success).
+int affinity_flood_init(int* state, uint8_t* code, const float* aff,
+                        const int* seeds, const uint8_t* mask, int Z, int Y,
+                        int X, int* work, void* stream) {
+  return flood::launch_init<AffinityRule>(state, code, {aff}, seeds, mask, Z,
+                                          Y, X, work, (cudaStream_t)stream);
+}
+
+// The whole flood after the init kernel, one cooperative launch on
+// `stream`; `result` (3 int64) receives steps, converged and tile_steps.
+// Returns the CUDA error of the launch (0 on success).
+int affinity_flood_run(int* state, const uint8_t* code, const float* aff,
+                       int Z, int Y, int X, int inner_cap, int max_steps,
+                       int* work, long long* result, void* stream) {
+  return flood::launch_run<AffinityRule>(state, code, {aff}, Z, Y, X,
+                                         inner_cap, max_steps, work, result,
+                                         (cudaStream_t)stream);
 }
 
 // The kernel's tile shape, so the plain version can reproduce its schedule.
 void affinity_flood_tile(int* tz, int* ty, int* tx) {
-  *tz = TZ;
-  *ty = TY;
-  *tx = TX;
+  *tz = flood::TZ;
+  *ty = flood::TY;
+  *tx = flood::TX;
 }
 
 }  // extern "C"

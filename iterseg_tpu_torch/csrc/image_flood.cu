@@ -15,189 +15,170 @@
 // Tie order: idx is the row-major ravel index of the (Z, Y, X) volume the
 // caller passes, as in the JAX recurrence.
 //
-// Schedule: that of affinity_flood.cu. CTAs run in no order, so the state
-// (d, lab, h, ckd, ckh, cki) is double-buffered (A -> B) and every launch is
-// deterministic:
-//  * one CTA per (TZ, TY, TX) = (4, 8, 32) tile, one thread per voxel;
-//  * the CTA loads d, lab and h of the tile plus a 1-voxel halo from A into
-//    shared memory; each thread keeps its voxel's claimant key, code and
-//    value in registers;
-//  * it applies the rule up to inner_cap times to the interior only
-//    (Jacobi inside the tile, halo frozen, a barrier between steps) and
-//    writes the free voxels' state to B;
-//  * flags[launch] is set when any voxel of any tile claimed; the host swaps
-//    A and B and relaunches until a flag stays 0. A launch that finds
-//    flags[launch - 1] == 0 returns at once (B already equals A).
-// With inner_cap = 1 a launch is exactly one step of the synchronous
+// Schedule: flood_schedule.cuh, shared with affinity_flood.cu (the frontier
+// of active tiles, the double buffer, the one persistent cooperative launch
+// per flood, and why skipping tiles is exact). This file holds only the
+// state layout and the claim rule:
+//  * state words per voxel: d (f32 bits), lab, h, ckd (f32 bits), ckh,
+//    cki; d, lab and h go through the shared halo'd tile, the claimant key,
+//    the code and the value stay in registers.
+// With inner_cap = 1 a step is exactly one step of the synchronous
 // recurrence, so the labels equal JAX wavefront_image_flood_jit(mode=
 // "claim") bit for bit. The hop reset compares max(d_v, value) > d_v in f32
 // with IEEE semantics: build without --use_fast_math.
 //
-// Bound: memory. Per voxel and launch the kernel reads d, lab and h through
-// the shared tile (each word once per CTA, halo overhead (6*10*34) /
-// (4*8*32) = 2x), code, and for free voxels ckd, ckh, cki and the value;
-// claiming voxels write 6 words. That is a few dozen compares per voxel
-// against ~50 bytes, so it sits far below the card's operations per byte.
+// Bound: memory. A processed tile reads d, lab and h through its halo'd
+// tile ((4*10*34) / (2*8*32) = 2.7x the tile's words), code, and for free
+// voxels ckd, ckh, cki and the value, and writes 6 words per free voxel:
+// a few dozen compares per voxel against ~70 bytes, far below the card's
+// operations per byte. The frontier keeps that traffic to the tiles that
+// can still change; the init pass (about 34 B a voxel) is the floor.
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "flood_schedule.cuh"
 
 namespace {
 
-constexpr int TZ = 4, TY = 8, TX = 32;
+using flood::Schedule;
+using flood::Tile;
+using flood::Voxel;
 
-struct Best {
-  float kd;
-  int kh;
-  int ki;
-  int lab;
+__device__ __forceinline__ float D(Tile* sh, int z, int y, int x) {
+  return __int_as_float(sh[0][z][y][x]);
+}
+
+struct ImageRule {
+  struct Best {
+    float kd;
+    int kh;
+    int ki;
+    int lab;
+  };
+
+  static __device__ __forceinline__ void consider(Best& b, float d_v,
+                                                  int lab_v, int h_v,
+                                                  int idx_v) {
+    bool better =
+        lab_v > 0 &&
+        (d_v < b.kd ||
+         (d_v == b.kd && (h_v < b.kh || (h_v == b.kh && idx_v < b.ki))));
+    if (better) {
+      b.kd = d_v;
+      b.kh = h_v;
+      b.ki = idx_v;
+      b.lab = lab_v;
+    }
+  }
+
+  static constexpr int kWords = 6;      // d, lab, h, ckd, ckh, cki
+  static constexpr int kHaloWords = 3;  // d, lab, h
+  struct Params {
+    const float* values;  // (Z, Y, X)
+  };
+  struct Own {
+    float ckd, val;
+    int ckh, cki;
+  };
+
+  static __device__ __forceinline__ void start(int* w, int lab, bool seeded,
+                                               const Params& p, long long g) {
+    w[0] = __float_as_int(seeded ? p.values[g] : INFINITY);
+    w[1] = lab;
+    w[2] = 0;
+    w[3] = __float_as_int(seeded ? -INFINITY : INFINITY);
+    w[4] = 0;
+    w[5] = 0;
+  }
+
+  static __device__ __forceinline__ void load(Own& o, const int* src,
+                                              long long N, const Voxel& v,
+                                              const Params& p,
+                                              const Schedule&) {
+    o.ckd = __int_as_float(__ldcg(src + 3 * N + v.g));
+    o.ckh = __ldcg(src + 4 * N + v.g);
+    o.cki = __ldcg(src + 5 * N + v.g);
+    o.val = __ldg(p.values + v.g);
+  }
+
+  // The best labelled neighbour and the claim test.
+  static __device__ __forceinline__ bool best(Best& b, Tile* sh, const Own& o,
+                                              const Voxel& v,
+                                              const Schedule& s) {
+    const int lz = v.lz, ly = v.ly, lx = v.lx;
+    const int idx = (int)v.g, YX = s.Y * s.X, X = s.X;
+    b = Best{INFINITY, 0, 0, 0};
+    consider(b, D(sh, lz - 1, ly, lx), sh[1][lz - 1][ly][lx],
+             sh[2][lz - 1][ly][lx], idx - YX);
+    consider(b, D(sh, lz + 1, ly, lx), sh[1][lz + 1][ly][lx],
+             sh[2][lz + 1][ly][lx], idx + YX);
+    consider(b, D(sh, lz, ly - 1, lx), sh[1][lz][ly - 1][lx],
+             sh[2][lz][ly - 1][lx], idx - X);
+    consider(b, D(sh, lz, ly + 1, lx), sh[1][lz][ly + 1][lx],
+             sh[2][lz][ly + 1][lx], idx + X);
+    consider(b, D(sh, lz, ly, lx - 1), sh[1][lz][ly][lx - 1],
+             sh[2][lz][ly][lx - 1], idx - 1);
+    consider(b, D(sh, lz, ly, lx + 1), sh[1][lz][ly][lx + 1],
+             sh[2][lz][ly][lx + 1], idx + 1);
+    return b.kd < o.ckd ||
+           (b.kd == o.ckd &&
+            (b.kh < o.ckh || (b.kh == o.ckh && b.ki < o.cki)));
+  }
+
+  static __device__ __forceinline__ void apply(Tile* sh, Own& o, const Best& b,
+                                               const Voxel& v) {
+    // torch.maximum semantics: NaN propagates
+    const float d_new =
+        (isnan(b.kd) || isnan(o.val)) ? NAN : fmaxf(b.kd, o.val);
+    sh[0][v.lz][v.ly][v.lx] = __float_as_int(d_new);
+    sh[1][v.lz][v.ly][v.lx] = b.lab;
+    sh[2][v.lz][v.ly][v.lx] = d_new > b.kd ? 0 : b.kh + 1;
+    o.ckd = b.kd;
+    o.ckh = b.kh;
+    o.cki = b.ki;
+  }
+
+  static __device__ __forceinline__ void store(int* dst, long long N,
+                                               const Voxel& v, Tile* sh,
+                                               const Own& o) {
+    dst[v.g] = sh[0][v.lz][v.ly][v.lx];
+    dst[N + v.g] = sh[1][v.lz][v.ly][v.lx];
+    dst[2 * N + v.g] = sh[2][v.lz][v.ly][v.lx];
+    dst[3 * N + v.g] = __float_as_int(o.ckd);
+    dst[4 * N + v.g] = o.ckh;
+    dst[5 * N + v.g] = o.cki;
+  }
 };
-
-__device__ __forceinline__ void consider(Best& b, float d_v, int lab_v,
-                                         int h_v, int idx_v) {
-  bool better =
-      lab_v > 0 &&
-      (d_v < b.kd ||
-       (d_v == b.kd && (h_v < b.kh || (h_v == b.kh && idx_v < b.ki))));
-  if (better) {
-    b.kd = d_v;
-    b.kh = h_v;
-    b.ki = idx_v;
-    b.lab = lab_v;
-  }
-}
-
-__global__ void __launch_bounds__(TZ * TY * TX)
-image_flood_step(const float* __restrict__ d_in,
-                 const int* __restrict__ lab_in,
-                 const int* __restrict__ h_in,
-                 const float* __restrict__ ckd_in,
-                 const int* __restrict__ ckh_in,
-                 const int* __restrict__ cki_in, float* __restrict__ d_out,
-                 int* __restrict__ lab_out, int* __restrict__ h_out,
-                 float* __restrict__ ckd_out, int* __restrict__ ckh_out,
-                 int* __restrict__ cki_out, const uint8_t* __restrict__ code,
-                 const float* __restrict__ values, int Z, int Y, int X,
-                 int inner_cap, int* __restrict__ flags, int launch) {
-  if (flags[launch - 1] == 0) return;  // converged: B already equals A
-
-  __shared__ float s_d[TZ + 2][TY + 2][TX + 2];
-  __shared__ int s_lab[TZ + 2][TY + 2][TX + 2];
-  __shared__ int s_h[TZ + 2][TY + 2][TX + 2];
-
-  const int tx = threadIdx.x, ty = threadIdx.y, tz = threadIdx.z;
-  const int tid = tx + TX * (ty + TY * tz);
-  const int x0 = blockIdx.x * TX, y0 = blockIdx.y * TY, z0 = blockIdx.z * TZ;
-  const long long YX = (long long)Y * X;
-
-  constexpr int HALO = (TZ + 2) * (TY + 2) * (TX + 2);
-  for (int i = tid; i < HALO; i += TZ * TY * TX) {
-    const int lx = i % (TX + 2);
-    const int ly = (i / (TX + 2)) % (TY + 2);
-    const int lz = i / ((TX + 2) * (TY + 2));
-    const int gx = x0 + lx - 1, gy = y0 + ly - 1, gz = z0 + lz - 1;
-    const bool in = gx >= 0 && gx < X && gy >= 0 && gy < Y && gz >= 0 &&
-                    gz < Z;
-    const long long g = (gz * (long long)Y + gy) * X + gx;
-    s_d[lz][ly][lx] = in ? d_in[g] : INFINITY;
-    s_lab[lz][ly][lx] = in ? lab_in[g] : 0;
-    s_h[lz][ly][lx] = in ? h_in[g] : 0;
-  }
-
-  const int gx = x0 + tx, gy = y0 + ty, gz = z0 + tz;
-  const bool in = gx < X && gy < Y && gz < Z;
-  const long long g = (gz * (long long)Y + gy) * X + gx;
-  const bool is_free = in && code[g] == 1;
-  float ckd = INFINITY, val = 0.0f;
-  int ckh = 0, cki = 0;
-  const int idx = (int)g;
-  if (is_free) {
-    ckd = ckd_in[g];
-    ckh = ckh_in[g];
-    cki = cki_in[g];
-    val = values[g];
-  }
-  __syncthreads();
-
-  const int lz = tz + 1, ly = ty + 1, lx = tx + 1;
-  bool claimed_any = false;
-  for (int it = 0; it < inner_cap; ++it) {
-    bool claim = false;
-    Best b{INFINITY, 0, 0, 0};
-    if (is_free) {
-      consider(b, s_d[lz - 1][ly][lx], s_lab[lz - 1][ly][lx],
-               s_h[lz - 1][ly][lx], idx - (int)YX);
-      consider(b, s_d[lz + 1][ly][lx], s_lab[lz + 1][ly][lx],
-               s_h[lz + 1][ly][lx], idx + (int)YX);
-      consider(b, s_d[lz][ly - 1][lx], s_lab[lz][ly - 1][lx],
-               s_h[lz][ly - 1][lx], idx - X);
-      consider(b, s_d[lz][ly + 1][lx], s_lab[lz][ly + 1][lx],
-               s_h[lz][ly + 1][lx], idx + X);
-      consider(b, s_d[lz][ly][lx - 1], s_lab[lz][ly][lx - 1],
-               s_h[lz][ly][lx - 1], idx - 1);
-      consider(b, s_d[lz][ly][lx + 1], s_lab[lz][ly][lx + 1],
-               s_h[lz][ly][lx + 1], idx + 1);
-      claim = b.kd < ckd ||
-              (b.kd == ckd && (b.kh < ckh || (b.kh == ckh && b.ki < cki)));
-    }
-    // every thread has read its neighbours before any writes its own voxel
-    const int any = __syncthreads_or(claim);
-    if (claim) {
-      // torch.maximum semantics: NaN propagates
-      const float d_new =
-          (isnan(b.kd) || isnan(val)) ? NAN : fmaxf(b.kd, val);
-      s_d[lz][ly][lx] = d_new;
-      s_lab[lz][ly][lx] = b.lab;
-      s_h[lz][ly][lx] = d_new > b.kd ? 0 : b.kh + 1;
-      ckd = b.kd;
-      ckh = b.kh;
-      cki = b.ki;
-    }
-    if (!any) break;
-    claimed_any = true;
-    __syncthreads();
-  }
-
-  if (is_free) {
-    d_out[g] = s_d[lz][ly][lx];
-    lab_out[g] = s_lab[lz][ly][lx];
-    h_out[g] = s_h[lz][ly][lx];
-    ckd_out[g] = ckd;
-    ckh_out[g] = ckh;
-    cki_out[g] = cki;
-  }
-  if (claimed_any && tid == 0) flags[launch] = 1;
-}
 
 }  // namespace
 
 extern "C" {
 
-// One launch of the image flood on `stream`: reads state A, writes state B,
-// reads flags[launch - 1] and sets flags[launch] when anything claimed.
-// Returns cudaGetLastError() of the launch (0 on success).
-int image_flood_launch(const float* d_in, const int* lab_in, const int* h_in,
-                       const float* ckd_in, const int* ckh_in,
-                       const int* cki_in, float* d_out, int* lab_out,
-                       int* h_out, float* ckd_out, int* ckh_out, int* cki_out,
-                       const uint8_t* code, const float* values, int Z, int Y,
-                       int X, int inner_cap, int* flags, int launch,
-                       void* stream) {
-  dim3 block(TX, TY, TZ);
-  dim3 grid((X + TX - 1) / TX, (Y + TY - 1) / TY, (Z + TZ - 1) / TZ);
-  image_flood_step<<<grid, block, 0, (cudaStream_t)stream>>>(
-      d_in, lab_in, h_in, ckd_in, ckh_in, cki_in, d_out, lab_out, h_out,
-      ckd_out, ckh_out, cki_out, code, values, Z, Y, X, inner_cap, flags,
-      launch);
-  return (int)cudaGetLastError();
+// The init kernel on `stream`: the start state into both buffers of `state`
+// ((2, 6, Z, Y, X) int32 words; seeds at their own value), `code`, and the
+// first worklist in `work` (3 + 5 * n_tiles int32). Returns the CUDA error
+// of the launch (0 on success).
+int image_flood_init(int* state, uint8_t* code, const float* values,
+                     const int* seeds, const uint8_t* mask, int Z, int Y,
+                     int X, int* work, void* stream) {
+  return flood::launch_init<ImageRule>(state, code, {values}, seeds, mask, Z,
+                                       Y, X, work, (cudaStream_t)stream);
+}
+
+// The whole flood after the init kernel, one cooperative launch on
+// `stream`; `result` (3 int64) receives steps, converged and tile_steps.
+// Returns the CUDA error of the launch (0 on success).
+int image_flood_run(int* state, const uint8_t* code, const float* values,
+                    int Z, int Y, int X, int inner_cap, int max_steps,
+                    int* work, long long* result, void* stream) {
+  return flood::launch_run<ImageRule>(state, code, {values}, Z, Y, X,
+                                      inner_cap, max_steps, work, result,
+                                      (cudaStream_t)stream);
 }
 
 // The kernel's tile shape, so the plain version can reproduce its schedule.
 void image_flood_tile(int* tz, int* ty, int* tx) {
-  *tz = TZ;
-  *ty = TY;
-  *tx = TX;
+  *tz = flood::TZ;
+  *ty = flood::TY;
+  *tx = flood::TX;
 }
 
 }  // extern "C"

@@ -427,11 +427,11 @@ class AffinityPipeline:
                                                   np.int64)).to(dev),
             torch.arange(1, n + 1, dtype=torch.int32, device=dev), pshape)
         t0 = _tick(profile, "upload_mask_seeds", t0)
-        lab_dev, n_launches, conv = affinity_flood(
+        lab_dev, n_steps, conv = affinity_flood(
             aff_pad, seeds_dev, mask_dev,
             max_launches=_FLOOD_MAX_LAUNCHES, inner_cap=1)
         if profile is not None:
-            profile["flood_launches"] = n_launches
+            profile["flood_launches"] = n_steps  # steps of the one launch
         if not conv:
             _flood_fallbacks += 1
             if profile is not None:
@@ -730,11 +730,11 @@ class DoGPipeline:
         # f32, so these are the host path's priorities
         values = -torch.sqrt(dist_sq)
         t0 = _tick(profile, "upload_mask_seeds", t0)
-        lab_dev, n_launches, conv = image_flood(
+        lab_dev, n_steps, conv = image_flood(
             values, seeds_dev, mask_dev, max_launches=_FLOOD_MAX_LAUNCHES,
             inner_cap=1)
         if profile is not None:
-            profile["flood_launches"] = n_launches
+            profile["flood_launches"] = n_steps  # steps of the one launch
         if not conv:
             _flood_fallbacks += 1
             if profile is not None:

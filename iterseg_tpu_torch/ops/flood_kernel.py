@@ -3,35 +3,42 @@ plain torch version, and the wrapper that picks between them.
 
 Replaces the TPU kernel ``iterseg_tpu/ops/pallas_flood.py:_flood_kernel``
 (``_sweep_call`` / ``pallas_flood_jit``). The source is
-``iterseg_tpu_torch/csrc/affinity_flood.cu``; its header note gives the
-flood rule, the tie order and the schedule. In short: the state is
-double-buffered, one CTA relaxes one (4, 8, 32) tile with a frozen 1-voxel
-halo for up to ``inner_cap`` Jacobi steps, and the host relaunches until no
-voxel claims. Unlike the Pallas kernel's in-order Gauss-Seidel sweep, every
-launch is deterministic, so the kernel is held bit-equal to its plain
+``iterseg_tpu_torch/csrc/affinity_flood.cu`` (the state layout and the claim
+rule) with the schedule it shares with the image flood in
+``csrc/flood_schedule.cuh``, whose header note gives the schedule and why it
+is exact. In short: the state is double-buffered and the grid is cut into
+``TILE`` tiles, each relaxed with a frozen 1-voxel halo for up to
+``inner_cap`` Jacobi steps; an init kernel writes the start state and the
+first worklist (every tile that holds a free voxel), and one persistent
+cooperative launch runs every step over a frontier of active tiles (a tile
+that claimed puts itself on the next list, and each face neighbour that
+reads a layer of it in which a voxel claimed), with a grid sync between
+steps and one read of ``(steps, converged, tile_steps)`` at the end. Every
+step is deterministic, so the kernel is held bit-equal to its plain
 version; with ``inner_cap=1`` both equal the synchronous claim recurrence
 (``ops/device_flood``) and JAX ``wavefront_flood_jit(mode="claim")``.
 
-What bounds it on the H100: memory. A launch reads about 7 state words and
-3 affinities per voxel and writes 4 (``BYTES_PER_VOXEL_LAUNCH``), so its
-floor is that traffic over the 3.35 TB/s of HBM3, times the launches the
-data needs. The design keeps d and lab in a shared-memory tile (each word
-loaded once per CTA, not once per neighbour), the rest of a voxel's state in
-registers, and never rewrites voxels that cannot change.
+What bounds it on the H100: memory and the latency of a step. Only 2-3% of
+the path's grid is free and most of it settles in a few steps, so the
+frontier moves only the tiles that can still change
+(``BYTES_PER_TILE_STEP`` each), the init pass (``INIT_BYTES_PER_VOXEL``)
+is the floor, and the 40-50 steps cost a grid sync each instead of a launch
+and a host round trip.
 
 Build: ``nvcc -gencode arch=compute_90a,code=sm_90a`` into a plain C
 library (``_build.build_dir``), at first use, loaded with ``ctypes``. The
 wrapper ``affinity_flood`` takes the plain version only for CPU tensors; a
-CUDA tensor launches the kernel or raises.
+CUDA tensor launches the two kernels or raises.
 
 The module also holds what the image flood (``ops/image_flood_kernel``)
-shares with this kernel: the build (``build_kernel_library``), the host
-relaunch loop (``relaunch``) and the plain versions' tiled schedule
-(``TileGrid``, ``run_tiled``).
+shares with this kernel: the build (``build_kernel_library``), the card
+driver (``flood_on_card``, ``start_on_card``) and the plain versions' tiled
+schedule (``TileGrid``, ``run_tiled``).
 """
 from __future__ import annotations
 
 import ctypes
+import math
 import os
 import subprocess
 import threading
@@ -41,15 +48,21 @@ import torch
 from .device_flood import (_INTERIOR, _claim_step, edge_weights, init_state,
                            neighbour_index, pad_ring, wavefront_flood)
 
-__all__ = ["affinity_flood", "affinity_flood_plain", "build", "launches",
-           "reset_launches", "TILE", "BYTES_PER_VOXEL_LAUNCH",
-           "OPS_PER_FREE_VOXEL_STEP", "TileGrid", "run_tiled", "relaunch",
-           "build_kernel_library"]
+__all__ = ["affinity_flood", "affinity_flood_plain", "affinity_flood_start",
+           "build", "launches", "reset_launches", "TILE",
+           "INIT_BYTES_PER_VOXEL", "BYTES_PER_TILE_STEP",
+           "OPS_PER_FREE_VOXEL_STEP", "TileGrid", "run_tiled",
+           "build_kernel_library", "flood_on_card", "start_on_card"]
 
-TILE = (4, 8, 32)  # (TZ, TY, TX): must match csrc/affinity_flood.cu
-# words the kernel's schedule moves per voxel and launch: 7 of state read,
-# the 3 affinities, 4 of state written
-BYTES_PER_VOXEL_LAUNCH = (7 + 3 + 4) * 4
+TILE = (2, 8, 32)  # (TZ, TY, TX): must match csrc/flood_schedule.cuh
+# the init kernel: seeds and mask read, code and both buffers' d and lab
+# written (and ckd and cki at the few free voxels, not counted)
+INIT_BYTES_PER_VOXEL = 4 + 1 + 1 + 2 * 2 * 4
+# one tile processed at one step: d and lab of the halo'd tile read, and per
+# voxel, as if all were free, code, ckd, cki and 3 affinities read and 4
+# state words written
+BYTES_PER_TILE_STEP = (2 * 4 * math.prod(t + 2 for t in TILE)
+                       + (1 + 4 * (2 + 3) + 4 * 4) * math.prod(TILE))
 # compares, selects and the max of one claim step of one free voxel: six
 # neighbours at ~11 each, plus the claim test and the update
 OPS_PER_FREE_VOXEL_STEP = 72
@@ -57,8 +70,6 @@ _SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc", "affinity_flood.cu")
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC"]
-# launches queued between reads of the convergence flags
-_CHECK_EVERY = 8
 _LOCK = threading.Lock()
 _lib = None
 _launches = 0
@@ -66,7 +77,9 @@ _INF = float("inf")
 
 
 def launches() -> int:
-    """Kernel launches made by ``affinity_flood`` since the last reset."""
+    """Kernel launches made by ``affinity_flood`` (and
+    ``affinity_flood_start``) since the last reset: 2 per flood, the init
+    kernel and the one step kernel."""
     return _launches
 
 
@@ -75,16 +88,22 @@ def reset_launches():
     _launches = 0
 
 
+def _count():
+    global _launches
+    _launches += 1
+
+
 def _nvcc() -> str:
     cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
     path = os.path.join(cuda_home, "bin", "nvcc")
     return path if os.path.exists(path) else "nvcc"
 
 
-def build_kernel_library(src: str, stem: str, tile_fn: str, tile):
-    """Compile ``src`` with ``nvcc`` for sm_90a (once per source version,
-    into ``_build.build_dir``) and load it with ``ctypes``; check that its
-    ``tile_fn`` reports ``tile``. Raises ``RuntimeError`` with the
+def build_kernel_library(src: str, stem: str, tile):
+    """Compile ``src`` with ``nvcc`` for sm_90a (once per version of the
+    source and the headers it includes, into ``_build.build_dir``), load it
+    with ``ctypes``, check that ``<stem>_tile`` reports ``tile`` and bind
+    ``<stem>_init`` and ``<stem>_run``. Raises ``RuntimeError`` with the
     compiler's output when the build fails."""
     from .._build import build_library
 
@@ -94,14 +113,22 @@ def build_kernel_library(src: str, stem: str, tile_fn: str, tile):
         raise RuntimeError(
             f"nvcc failed to build {src}:\n{e.stdout}\n{e.stderr}") from e
     lib = ctypes.CDLL(path)
-    ci = ctypes.c_int
-    fn = getattr(lib, tile_fn)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn = getattr(lib, stem + "_tile")
     fn.restype = None
     fn.argtypes = [ctypes.POINTER(ci)] * 3
     t = [ci(), ci(), ci()]
     fn(*[ctypes.byref(v) for v in t])
     if tuple(v.value for v in t) != tuple(tile):
         raise RuntimeError(f"kernel tile {[v.value for v in t]} != {tile}")
+    init = getattr(lib, stem + "_init")
+    init.restype = ci
+    # state, code, input, seeds, mask, Z, Y, X, work, stream
+    init.argtypes = [vp] * 5 + [ci] * 3 + [vp, vp]
+    run = getattr(lib, stem + "_run")
+    run.restype = ci
+    # state, code, input, Z, Y, X, inner_cap, max_steps, work, result, stream
+    run.argtypes = [vp] * 3 + [ci] * 5 + [vp] * 3
     return lib
 
 
@@ -112,14 +139,76 @@ def build():
     global _lib
     with _LOCK:
         if _lib is None:
-            lib = build_kernel_library(_SRC, "affinity_flood",
-                                       "affinity_flood_tile", TILE)
-            vp, ci = ctypes.c_void_p, ctypes.c_int
-            lib.affinity_flood_launch.restype = ci
-            lib.affinity_flood_launch.argtypes = ([vp] * 10 + [ci] * 4
-                                                  + [vp, ci, vp])
-            _lib = lib
+            _lib = build_kernel_library(_SRC, "affinity_flood", TILE)
         return _lib
+
+
+def _raise_on(err, stem, kernel):
+    if err:
+        raise RuntimeError(f"{stem} {kernel} kernel launch failed: CUDA "
+                           f"error {err}")
+
+
+def start_on_card(lib, stem, n_words, tile, inputs, seeds, mask, count):
+    """Launch ``<stem>_init`` on the current stream: returns ``(state
+    (2, n_words, Z, Y, X) int32 words, code uint8, work int32)``, the start
+    state in both buffers, the code (0 outside the mask, 1 free, 2 seed) and
+    the work area with the first worklist. ``count()`` is called once the
+    kernel is launched."""
+    shape = tuple(mask.shape)
+    n_tiles = math.prod(-(-s // t) for s, t in zip(shape, tile))
+    dev = mask.device
+    state = torch.empty((2, n_words) + shape, dtype=torch.int32, device=dev)
+    code = torch.empty(shape, dtype=torch.uint8, device=dev)
+    work = torch.empty(3 + 5 * n_tiles, dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    _raise_on(getattr(lib, stem + "_init")(
+        state.data_ptr(), code.data_ptr(), inputs.data_ptr(),
+        seeds.data_ptr(), mask.data_ptr(), *shape, work.data_ptr(), stream),
+        stem, "init")
+    count()
+    return state, code, work
+
+
+def first_worklist(work, n_tiles):
+    """The sorted tile ids of list 1 in a work area ``start_on_card``
+    filled (for checks; it reads the device)."""
+    n = int(work[1])
+    return work[3 + n_tiles:3 + n_tiles + n].sort().values
+
+
+def flood_on_card(lib, stem, n_words, tile, inputs, seeds, mask,
+                  max_launches, inner_cap, stats, count):
+    """One flood on the card: the init kernel, then the one cooperative
+    launch of ``<stem>_run`` over the worklists, then one read of
+    ``(steps, converged, tile_steps)``. Returns ``(labels, steps,
+    converged)``; ``stats``, when a dict, gets ``steps``, ``tile_steps``,
+    ``setup_ms`` (the init kernel) and ``steps_ms`` (the step kernel) by
+    CUDA events."""
+    dev = mask.device
+    shape = tuple(mask.shape)
+    events = None
+    if stats is not None:
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        events[0].record()
+    state, code, work = start_on_card(lib, stem, n_words, tile, inputs, seeds,
+                                      mask, count)
+    if events:
+        events[1].record()
+    result = torch.empty(3, dtype=torch.int64, device=dev)
+    _raise_on(getattr(lib, stem + "_run")(
+        state.data_ptr(), code.data_ptr(), inputs.data_ptr(), *shape,
+        inner_cap, max_launches, work.data_ptr(), result.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream), stem, "step")
+    count()
+    if events:
+        events[2].record()
+    steps, converged, tile_steps = result.tolist()
+    if stats is not None:
+        stats.update(steps=steps, tile_steps=tile_steps,
+                     setup_ms=events[0].elapsed_time(events[1]),
+                     steps_ms=events[1].elapsed_time(events[2]))
+    return state[steps % 2, 1], steps, bool(converged)
 
 
 def _check(aff, seeds, mask, inner_cap, max_launches):
@@ -188,62 +277,93 @@ class TileGrid:
         return x_pad[_INTERIOR][:Z, :Y, :X].contiguous()
 
 
-def run_tiled(grid, halo_state, own_state, step, max_launches, inner_cap):
-    """The kernels' schedule in plain torch: every launch gives each tile
-    a copy of the state it reads through the halo (``halo_state``, a list
-    of ``(tensor, ring fill)`` whose second entry holds the labels), frozen
+def _next_tiles(claimed):
+    """The tiles a step puts on the next list, from ``claimed`` (nz, ny, nx,
+    tz, ty, tx), the voxels that claimed: each tile in which a voxel
+    claimed, and the face neighbour across each face whose boundary layer
+    holds a voxel that claimed (the layer that neighbour reads through its
+    halo)."""
+    out = claimed.flatten(3).any(-1)
+    for dim in range(3):
+        n = out.shape[dim]
+        low = claimed.narrow(3 + dim, 0, 1).flatten(3).any(-1)
+        high = claimed.narrow(3 + dim, claimed.shape[3 + dim] - 1,
+                              1).flatten(3).any(-1)
+        out.narrow(dim, 0, n - 1).logical_or_(low.narrow(dim, 1, n - 1))
+        out.narrow(dim, 1, n - 1).logical_or_(high.narrow(dim, 0, n - 1))
+    return out
+
+
+def run_tiled(grid, halo_state, own_state, step, max_launches, inner_cap,
+              free_t=None, stats=None):
+    """The kernels' schedule in plain torch: every step gives each tile a
+    copy of the state it reads through the halo (``halo_state``, a list of
+    ``(tensor, ring fill)`` whose second entry holds the labels), frozen
     outside the tile's interior, runs ``inner_cap`` steps on every tile's
     interior and folds the interiors back. ``own_state`` (tiled per-voxel
     tensors) is carried from step to step. ``step(halos, own)`` returns
     ``(new interiors, new own, claim)``. Steps after a tile stops claiming
     change nothing, so this equals the kernels' early exit. Returns
-    ``(labels, n_launches, converged)``."""
+    ``(labels, n_steps, converged)``.
+
+    With ``stats`` (a dict), the kernels' frontier as well: ``free_t`` (the
+    tiled free mask) gives list 1, the tiles that hold a free voxel; step k
+    folds back only the tiles on list k, and list k + 1 is ``_next_tiles``
+    of the voxels that claimed at step k, those tiles that hold a free
+    voxel. Every tile is still computed, so the skip rule is checked:
+    ``stats`` gets ``steps``, ``lists`` (the tiles on each step's list),
+    ``tile_steps`` (their sum), ``missed`` (tiles off the list that would
+    have claimed; 0 when the rule holds) and ``tiles``."""
     pads = [pad_ring(grid.to_grid(x, fill), fill) for x, fill in halo_state]
+    frontier = stats is not None
+    if frontier:
+        has_free = free_t.flatten(3).any(-1)
+        active, lists, missed = has_free, [], 0
+    n, converged = max_launches, False
     for launch in range(1, max_launches + 1):
         halos = [grid.halo_tiles(p) for p in pads]
-        changed = False
+        own = own_state
+        claimed = None  # the voxels that claimed in this step
         for _ in range(inner_cap):
-            interiors, own_state, claim = step(halos, own_state)
+            interiors, own, claim = step(halos, own)
             for h, i in zip(halos, interiors):
                 h[_INTERIOR] = i
-            changed = changed or bool(claim.any())
-        if not changed:
-            return grid.crop(pads[1]), launch, True
+            claimed = claim if claimed is None else claimed | claim
+        if frontier:
+            on = active[..., None, None, None]
+            lists.append(int(active.sum()))
+            missed += int((claimed & ~on).any(-1).any(-1).any(-1).sum())
+            claimed = claimed & on
+            own = tuple(torch.where(on, a, b) for a, b in zip(own, own_state))
+        own_state = own
+        if not bool(claimed.any()):
+            n, converged = launch, True
+            break
         for p, h in zip(pads, halos):
-            p[_INTERIOR] = grid.untile(h[_INTERIOR])
-    return grid.crop(pads[1]), max_launches, False
-
-
-def relaunch(launch_one, flags, max_launches):
-    """Host loop of a relaunched kernel: ``launch_one(n)`` queues launch
-    ``n`` (it reads ``flags[n - 1]`` and sets ``flags[n]`` when anything
-    claimed), ``_CHECK_EVERY`` launches between reads of the flags. Returns
-    ``(n_launches, converged)``: the first launch that claimed nothing, or
-    ``max_launches``."""
-    done = 0
-    while done < max_launches:
-        k = min(_CHECK_EVERY, max_launches - done)
-        for launch in range(done + 1, done + k + 1):
-            launch_one(launch)
-        first = done + 1
-        done += k
-        still = flags[first:done + 1].cpu()
-        idle = (still == 0).nonzero()
-        if len(idle):
-            return first + int(idle[0]), True
-    return max_launches, False
+            new = h[_INTERIOR]
+            if frontier:
+                new = torch.where(on, new, grid.tiles(p[_INTERIOR]))
+            p[_INTERIOR] = grid.untile(new)
+        if frontier:
+            active = _next_tiles(claimed) & has_free
+    if frontier:
+        stats.update(steps=n, lists=lists, tile_steps=sum(lists),
+                     missed=missed, tiles=math.prod(grid.n))
+    return grid.crop(pads[1]), n, converged
 
 
 def affinity_flood_plain(affinities, seeds, mask, max_launches=512,
-                         inner_cap=1):
+                         inner_cap=1, stats=None):
     """The kernel's function and schedule in plain torch, on any device.
 
     ``inner_cap=1`` is the synchronous claim recurrence. For ``inner_cap >
-    1`` each launch relaxes every tile of the kernel with a frozen 1-voxel
-    halo for ``inner_cap`` claim steps (``run_tiled``). Returns ``(labels
-    int32, n_launches, converged)`` as ``affinity_flood`` does."""
+    1`` each step relaxes every tile of the kernel with a frozen 1-voxel
+    halo for ``inner_cap`` claim steps (``run_tiled``). With ``stats`` (a
+    dict) it runs the kernel's frontier schedule (``run_tiled(stats=)``) at
+    any ``inner_cap`` and reports it there. Returns ``(labels int32,
+    n_steps, converged)`` as ``affinity_flood`` does."""
     _check(affinities, seeds, mask, inner_cap, max_launches)
-    if inner_cap == 1:
+    if inner_cap == 1 and stats is None:
         return wavefront_flood(affinities, seeds, mask, max_iters=max_launches)
     grid = TileGrid(mask.shape, TILE)
     d, lab, ckd, cki, code = init_state(seeds, mask)
@@ -260,50 +380,46 @@ def affinity_flood_plain(affinities, seeds, mask, max_launches=512,
 
     return run_tiled(grid, [(d, _INF), (lab, 0)],
                      (grid.tiled(ckd, _INF), grid.tiled(cki, 0)), step,
-                     max_launches, inner_cap)
+                     max_launches, inner_cap, free_t, stats)
 
 
-def affinity_flood(affinities, seeds, mask, max_launches=512, inner_cap=1):
+def affinity_flood_start(affinities, seeds, mask):
+    """The init kernel alone, on CUDA tensors: ``(state (2, 4, Z, Y, X)
+    int32 words d, lab, ckd, cki of both buffers, code, first worklist
+    (sorted tile ids))``, for holding it against ``init_state``."""
+    _check(affinities, seeds, mask, 1, 1)
+    lib = build()
+    with torch.cuda.device(mask.device):
+        state, code, work = start_on_card(
+            lib, "affinity_flood", 4, TILE, affinities.contiguous(),
+            seeds.contiguous(), mask.contiguous(), _count)
+        n_tiles = (len(work) - 3) // 5
+        return state, code, first_worklist(work, n_tiles)
+
+
+def affinity_flood(affinities, seeds, mask, max_launches=512, inner_cap=1,
+                   stats=None):
     """Seeded affinity flood: ``affinities`` (3, Z, Y, X) float32,
     ``seeds`` (Z, Y, X) int32 (0 = unseeded), ``mask`` (Z, Y, X) bool, all
-    on one device. Returns ``(labels int32 (Z, Y, X), n_launches,
-    converged)``: ``n_launches`` counts launches up to and including the
-    first that claimed nothing, or ``max_launches`` when none did
+    on one device. Returns ``(labels int32 (Z, Y, X), n_steps,
+    converged)``: ``n_steps`` counts steps up to and including the first
+    that claimed nothing, or ``max_launches`` when none did
     (``converged=False``; the caller then takes the exact host flood).
 
-    CPU tensors run ``affinity_flood_plain``; CUDA tensors launch the kernel
-    on the current stream, reading the convergence flags every
-    ``_CHECK_EVERY`` launches."""
+    CPU tensors run ``affinity_flood_plain``; CUDA tensors launch the init
+    kernel and the one persistent step kernel on the current stream and
+    read the device once, at the end. ``stats``, when a dict, gets the
+    schedule's numbers (``flood_on_card``; on the CPU,
+    ``run_tiled``'s)."""
     if affinities.device.type == "cpu":
         return affinity_flood_plain(affinities, seeds, mask, max_launches,
-                                    inner_cap)
+                                    inner_cap, stats)
     if affinities.device.type != "cuda":
         raise ValueError(f"unsupported device {affinities.device}")
     _check(affinities, seeds, mask, inner_cap, max_launches)
     lib = build()
-    aff = affinities.contiguous()
-    Z, Y, X = mask.shape
-    with torch.cuda.device(aff.device):
-        d, lab, ckd, cki, code = init_state(seeds.contiguous(),
-                                            mask.contiguous())
-        bufs = [(d, lab, ckd, cki),
-                (d.clone(), lab.clone(), ckd.clone(), cki.clone())]
-        flags = torch.zeros(max_launches + 1, dtype=torch.int32,
-                            device=aff.device)
-        flags[0] = 1
-        stream = torch.cuda.current_stream(aff.device).cuda_stream
-
-        def launch_one(launch):
-            global _launches
-            src, dst = bufs[(launch - 1) % 2], bufs[launch % 2]
-            err = lib.affinity_flood_launch(
-                *[t.data_ptr() for t in src + dst], code.data_ptr(),
-                aff.data_ptr(), Z, Y, X, inner_cap, flags.data_ptr(),
-                launch, stream)
-            if err:
-                raise RuntimeError(
-                    f"affinity_flood kernel launch failed: CUDA error {err}")
-            _launches += 1
-
-        n, converged = relaunch(launch_one, flags, max_launches)
-        return bufs[n % 2][1], n, converged
+    with torch.cuda.device(affinities.device):
+        return flood_on_card(lib, "affinity_flood", 4, TILE,
+                             affinities.contiguous(), seeds.contiguous(),
+                             mask.contiguous(), max_launches, inner_cap,
+                             stats, _count)

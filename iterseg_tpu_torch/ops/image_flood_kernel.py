@@ -7,11 +7,14 @@ which the DoG pipeline runs with ``device_flood="pallas"``. The source is
 ``iterseg_tpu_torch/csrc/image_flood.cu``; its header note gives the flood
 rule (skimage's node-keyed heap rule on −EDT: the weight entering ``u`` is
 ``values[u]``, seeds start at their own value, keys ``(d, h, idx)`` with a
-hop count that resets on a strict rise), the tie order and the schedule,
-which is the affinity kernel's: double-buffered state, one CTA per (4, 8,
-32) tile with a frozen 1-voxel halo for up to ``inner_cap`` Jacobi steps,
-relaunched until no voxel claims. With ``inner_cap=1`` both the kernel and
-``image_flood_plain`` equal the synchronous hop-tie recurrence
+hop count that resets on a strict rise) and the tie order. The schedule is
+the affinity kernel's, ``csrc/flood_schedule.cuh``: double-buffered state,
+``TILE`` tiles relaxed with a frozen 1-voxel halo for up to ``inner_cap``
+Jacobi steps, an init kernel that writes the start state and the first
+worklist, and one persistent cooperative launch that runs every step over a
+frontier of active tiles with a grid sync between steps. With
+``inner_cap=1`` both the kernel and ``image_flood_plain`` equal the
+synchronous hop-tie recurrence
 (``ops/device_flood.wavefront_image_flood_core``) and JAX
 ``wavefront_image_flood_jit(mode="claim")`` bit for bit.
 
@@ -19,19 +22,21 @@ Unlike the Pallas kernel, which does not tile x and so cannot hold a frame
 wider than ~510 voxels in VMEM (the JAX pipeline then reroutes to its XLA
 recurrence), this kernel tiles every axis: every shape runs it.
 
-What bounds it on the H100: memory. A launch reads d, lab and h through the
-halo'd tile, code, and ckd, ckh, cki and the value, and writes 6 words for
-claiming voxels (``BYTES_PER_VOXEL_LAUNCH``); the floor of the flood is its
-inputs read once and its labels written once.
+What bounds it on the H100: memory and the latency of a step. About 2.6% of
+the DoG path's grid is free, so the frontier moves only the tiles that can
+still change (``BYTES_PER_TILE_STEP`` each: d, lab and h through the halo'd
+tile, code, ckd, ckh, cki and the value read, 6 words written), the init
+pass (``INIT_BYTES_PER_VOXEL``) is the floor, and each of the 40-50 steps
+costs a grid sync, not a launch and a host round trip.
 
 Build: ``nvcc -gencode arch=compute_90a,code=sm_90a`` (no fast math) into a
 plain C library, at first use, loaded with ``ctypes``. The wrapper
 ``image_flood`` takes the plain version only for CPU tensors; a CUDA tensor
-launches the kernel or raises.
+launches the two kernels or raises.
 """
 from __future__ import annotations
 
-import ctypes
+import math
 import os
 import threading
 
@@ -39,16 +44,23 @@ import torch
 
 from .device_flood import (_image_claim_step, image_init_state,
                            neighbour_index, wavefront_image_flood_core)
-from .flood_kernel import TileGrid, build_kernel_library, relaunch, run_tiled
+from .flood_kernel import (TileGrid, build_kernel_library, first_worklist,
+                           flood_on_card, run_tiled, start_on_card)
 
-__all__ = ["image_flood", "image_flood_plain", "build", "launches",
-           "reset_launches", "TILE", "BYTES_PER_VOXEL_LAUNCH",
-           "OPS_PER_FREE_VOXEL_STEP"]
+__all__ = ["image_flood", "image_flood_plain", "image_flood_start", "build",
+           "launches", "reset_launches", "TILE", "INIT_BYTES_PER_VOXEL",
+           "BYTES_PER_TILE_STEP", "OPS_PER_FREE_VOXEL_STEP"]
 
-TILE = (4, 8, 32)  # (TZ, TY, TX): must match csrc/image_flood.cu
-# bytes the kernel's schedule moves per voxel and launch: d, lab, h, ckd,
-# ckh, cki and the value read (7 words), code (1 byte), 6 words written
-BYTES_PER_VOXEL_LAUNCH = (7 + 6) * 4 + 1
+TILE = (2, 8, 32)  # (TZ, TY, TX): must match csrc/flood_schedule.cuh
+# the init kernel: seeds, mask and values read, code and both buffers' d,
+# lab and h written (and ckd, ckh and cki at the few free voxels, not
+# counted)
+INIT_BYTES_PER_VOXEL = 4 + 1 + 4 + 1 + 2 * 3 * 4
+# one tile processed at one step: d, lab and h of the halo'd tile read, and
+# per voxel, as if all were free, code, ckd, ckh, cki and the value read and
+# 6 state words written
+BYTES_PER_TILE_STEP = (3 * 4 * math.prod(t + 2 for t in TILE)
+                       + (1 + 4 * 4 + 6 * 4) * math.prod(TILE))
 # compares, selects and the max of one claim step of one free voxel: six
 # neighbours at ~14 each, plus the claim test, the max and the hop update
 OPS_PER_FREE_VOXEL_STEP = 100
@@ -61,13 +73,20 @@ _INF = float("inf")
 
 
 def launches() -> int:
-    """Kernel launches made by ``image_flood`` since the last reset."""
+    """Kernel launches made by ``image_flood`` (and ``image_flood_start``)
+    since the last reset: 2 per flood, the init kernel and the one step
+    kernel."""
     return _launches
 
 
 def reset_launches():
     global _launches
     _launches = 0
+
+
+def _count():
+    global _launches
+    _launches += 1
 
 
 def build():
@@ -77,13 +96,7 @@ def build():
     global _lib
     with _LOCK:
         if _lib is None:
-            lib = build_kernel_library(_SRC, "image_flood",
-                                       "image_flood_tile", TILE)
-            vp, ci = ctypes.c_void_p, ctypes.c_int
-            lib.image_flood_launch.restype = ci
-            lib.image_flood_launch.argtypes = ([vp] * 14 + [ci] * 4
-                                               + [vp, ci, vp])
-            _lib = lib
+            _lib = build_kernel_library(_SRC, "image_flood", TILE)
         return _lib
 
 
@@ -108,16 +121,19 @@ def _check(values, seeds, mask, inner_cap, max_launches):
         raise ValueError("volumes of 2^31 voxels or more are not supported")
 
 
-def image_flood_plain(values, seeds, mask, max_launches=512, inner_cap=1):
+def image_flood_plain(values, seeds, mask, max_launches=512, inner_cap=1,
+                      stats=None):
     """The kernel's function and schedule in plain torch, on any device.
 
     ``inner_cap=1`` is the synchronous hop-tie recurrence. For ``inner_cap
-    > 1`` each launch relaxes every tile of the kernel with a frozen
-    1-voxel halo for ``inner_cap`` steps (``flood_kernel.run_tiled``).
-    Returns ``(labels int32, n_launches, converged)`` as ``image_flood``
+    > 1`` each step relaxes every tile of the kernel with a frozen
+    1-voxel halo for ``inner_cap`` steps (``flood_kernel.run_tiled``). With
+    ``stats`` (a dict) it runs the kernel's frontier schedule
+    (``run_tiled(stats=)``) at any ``inner_cap`` and reports it there.
+    Returns ``(labels int32, n_steps, converged)`` as ``image_flood``
     does."""
     _check(values, seeds, mask, inner_cap, max_launches)
-    if inner_cap == 1:
+    if inner_cap == 1 and stats is None:
         return wavefront_image_flood_core(values, seeds, mask,
                                           max_iters=max_launches)
     grid = TileGrid(mask.shape, TILE)
@@ -135,51 +151,46 @@ def image_flood_plain(values, seeds, mask, max_launches=512, inner_cap=1):
 
     own = (grid.tiled(ckd, _INF), grid.tiled(ckh, 0), grid.tiled(cki, 0))
     return run_tiled(grid, [(d, _INF), (lab, 0), (h, 0)], own, step,
-                     max_launches, inner_cap)
+                     max_launches, inner_cap, free_t, stats)
 
 
-def image_flood(values, seeds, mask, max_launches=512, inner_cap=1):
+def image_flood_start(values, seeds, mask):
+    """The init kernel alone, on CUDA tensors: ``(state (2, 6, Z, Y, X)
+    int32 words d, lab, h, ckd, ckh, cki of both buffers, code, first
+    worklist (sorted tile ids))``, for holding it against
+    ``image_init_state``."""
+    _check(values, seeds, mask, 1, 1)
+    lib = build()
+    with torch.cuda.device(mask.device):
+        state, code, work = start_on_card(
+            lib, "image_flood", 6, TILE, values.contiguous(),
+            seeds.contiguous(), mask.contiguous(), _count)
+        return state, code, first_worklist(work, (len(work) - 3) // 5)
+
+
+def image_flood(values, seeds, mask, max_launches=512, inner_cap=1,
+                stats=None):
     """Seeded image watershed: ``values`` (Z, Y, X) float32 (the flood's
     priorities, −EDT on the DoG path), ``seeds`` (Z, Y, X) int32 (0 =
     unseeded), ``mask`` (Z, Y, X) bool, all on one device. Returns
-    ``(labels int32 (Z, Y, X), n_launches, converged)``: ``n_launches``
-    counts launches up to and including the first that claimed nothing, or
+    ``(labels int32 (Z, Y, X), n_steps, converged)``: ``n_steps`` counts
+    steps up to and including the first that claimed nothing, or
     ``max_launches`` when none did (``converged=False``; the caller then
     takes the exact host flood).
 
-    CPU tensors run ``image_flood_plain``; CUDA tensors launch the kernel
-    on the current stream, reading the convergence flags every
-    ``flood_kernel._CHECK_EVERY`` launches."""
+    CPU tensors run ``image_flood_plain``; CUDA tensors launch the init
+    kernel and the one persistent step kernel on the current stream and
+    read the device once, at the end. ``stats``, when a dict, gets the
+    schedule's numbers (``flood_kernel.flood_on_card``; on the CPU,
+    ``run_tiled``'s)."""
     if values.device.type == "cpu":
         return image_flood_plain(values, seeds, mask, max_launches,
-                                 inner_cap)
+                                 inner_cap, stats)
     if values.device.type != "cuda":
         raise ValueError(f"unsupported device {values.device}")
     _check(values, seeds, mask, inner_cap, max_launches)
     lib = build()
-    vals = values.contiguous()
-    Z, Y, X = mask.shape
-    with torch.cuda.device(vals.device):
-        d, lab, h, ckd, ckh, cki, code = image_init_state(
-            vals, seeds.contiguous(), mask.contiguous())
-        state = (d, lab, h, ckd, ckh, cki)
-        bufs = [state, tuple(t.clone() for t in state)]
-        flags = torch.zeros(max_launches + 1, dtype=torch.int32,
-                            device=vals.device)
-        flags[0] = 1
-        stream = torch.cuda.current_stream(vals.device).cuda_stream
-
-        def launch_one(launch):
-            global _launches
-            src, dst = bufs[(launch - 1) % 2], bufs[launch % 2]
-            err = lib.image_flood_launch(
-                *[t.data_ptr() for t in src + dst], code.data_ptr(),
-                vals.data_ptr(), Z, Y, X, inner_cap, flags.data_ptr(),
-                launch, stream)
-            if err:
-                raise RuntimeError(
-                    f"image_flood kernel launch failed: CUDA error {err}")
-            _launches += 1
-
-        n, converged = relaunch(launch_one, flags, max_launches)
-        return bufs[n % 2][1], n, converged
+    with torch.cuda.device(values.device):
+        return flood_on_card(lib, "image_flood", 6, TILE, values.contiguous(),
+                             seeds.contiguous(), mask.contiguous(),
+                             max_launches, inner_cap, stats, _count)

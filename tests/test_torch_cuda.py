@@ -58,26 +58,35 @@ def as_inputs(aff, coords, mask, device):
 def test_kernel_equals_plain(cuda, case, inner_cap):
     inputs = as_inputs(*case(), device=cuda)
     before = fk.launches()
-    got, n, conv = fk.affinity_flood(*inputs, inner_cap=inner_cap)
+    stats, plain_stats = {}, {}
+    got, n, conv = fk.affinity_flood(*inputs, inner_cap=inner_cap,
+                                     stats=stats)
     want, n_plain, conv_plain = fk.affinity_flood_plain(
-        *inputs, inner_cap=inner_cap)
+        *inputs, inner_cap=inner_cap, stats=plain_stats)
     torch.cuda.synchronize()
-    assert fk.launches() > before
-    assert conv and conv_plain and n == n_plain
+    assert fk.launches() == before + 2  # the init and the one step kernel
+    assert conv and conv_plain and n == n_plain == stats["steps"]
     assert torch.equal(got, want)
+    assert stats["tile_steps"] == plain_stats["tile_steps"]
+    assert plain_stats["missed"] == 0
 
 
-def test_kernel_ragged_shape_and_non_convergence(cuda, monkeypatch):
-    # a shape that is no multiple of the (4, 8, 32) tile on any axis, and
-    # flag reads that do not fall on the converging launch
-    monkeypatch.setattr(fk, "_CHECK_EVERY", 3)
+def test_kernel_ragged_shape_and_non_convergence(cuda):
+    # a shape that is no multiple of the tile on any axis, and step caps
+    # before, at and after the converging step
     inputs = as_inputs(*smooth_case(shape=(13, 37, 45), seed=2), device=cuda)
     got, n, conv = fk.affinity_flood(*inputs)
     want, n_plain, _ = fk.affinity_flood_plain(*inputs)
     assert conv and n == n_plain and torch.equal(got, want)
-    part, n2, conv2 = fk.affinity_flood(*inputs, max_launches=2)
-    plain2, _, _ = fk.affinity_flood_plain(*inputs, max_launches=2)
-    assert n2 == 2 and not conv2 and torch.equal(part, plain2)
+    for cap in (1, 2, n - 1, n):
+        stats, plain_stats = {}, {}
+        part, n2, conv2 = fk.affinity_flood(*inputs, max_launches=cap,
+                                            stats=stats)
+        plain2, n2_plain, conv2_plain = fk.affinity_flood_plain(
+            *inputs, max_launches=cap, stats=plain_stats)
+        assert n2 == n2_plain == cap and conv2 == conv2_plain == (cap == n)
+        assert torch.equal(part, plain2)
+        assert stats["tile_steps"] == plain_stats["tile_steps"]
 
 
 def test_fast_path_equals_generic_on_card(cuda):
@@ -127,18 +136,58 @@ def test_image_kernel_equals_plain(cuda, shape, inner_cap):
     inputs = tuple(torch.from_numpy(x).to(cuda)
                    for x in edt_case(shape=shape, seed=len(shape) + shape[1]))
     before = ifk.launches()
-    got, n, conv = ifk.image_flood(*inputs, inner_cap=inner_cap)
-    want, n_plain, conv_plain = ifk.image_flood_plain(*inputs,
-                                                      inner_cap=inner_cap)
+    stats, plain_stats = {}, {}
+    got, n, conv = ifk.image_flood(*inputs, inner_cap=inner_cap, stats=stats)
+    want, n_plain, conv_plain = ifk.image_flood_plain(
+        *inputs, inner_cap=inner_cap, stats=plain_stats)
     torch.cuda.synchronize()
-    assert ifk.launches() > before
-    assert conv and conv_plain and n == n_plain
+    assert ifk.launches() == before + 2  # the init and the one step kernel
+    assert conv and conv_plain and n == n_plain == stats["steps"]
     assert torch.equal(got, want)
+    assert stats["tile_steps"] == plain_stats["tile_steps"]
     part, n2, conv2 = ifk.image_flood(*inputs, max_launches=2,
                                       inner_cap=inner_cap)
     plain2, _, _ = ifk.image_flood_plain(*inputs, max_launches=2,
                                          inner_cap=inner_cap)
     assert n2 == 2 and not conv2 and torch.equal(part, plain2)
+
+
+@pytest.mark.parametrize("flood", ["affinity", "image"])
+def test_init_kernel_equals_init_state(cuda, flood):
+    """The init kernel writes init_state / image_init_state into both
+    buffers (the halo words everywhere, the claimant key where a step reads
+    it: at free voxels), the code, and list 1: every tile that holds a free
+    voxel."""
+    from iterseg_tpu_torch.ops.device_flood import (image_init_state,
+                                                    init_state)
+    from iterseg_tpu_torch.ops.flood_kernel import TileGrid
+
+    values, seeds, mask = (torch.from_numpy(x).to(cuda)
+                           for x in edt_case(shape=(13, 37, 45), seed=4))
+    seeds[0, 0, 0] = -3  # a negative seed outside the mask stays unlabelled
+    if flood == "affinity":
+        aff = torch.stack([values] * 3).contiguous()
+        state, code, first = fk.affinity_flood_start(aff, seeds, mask)
+        d, lab, ckd, cki, want_code = init_state(seeds, mask)
+        want, halo_words = (d, lab, ckd, cki), 2
+    else:
+        state, code, first = ifk.image_flood_start(values, seeds, mask)
+        *want, want_code = image_init_state(values, seeds, mask)
+        halo_words = 3
+    assert torch.equal(code, want_code)
+    free = want_code == 1
+    for buf in range(2):
+        for w, x in enumerate(want):
+            got = state[buf, w]
+            if x.dtype == torch.float32:
+                got = got.view(torch.float32)
+            if w >= halo_words:
+                got, x = got[free], x[free]
+            assert torch.equal(got, x), (buf, w)
+    grid = TileGrid(mask.shape, fk.TILE)
+    holds = grid.tiled(want_code == 1, False).flatten(3).any(-1).flatten()
+    assert torch.equal(first.long().cpu(),
+                       holds.nonzero().flatten().cpu())
 
 
 def test_dog_fast_path_and_pallas_on_card(cuda):
