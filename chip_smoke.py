@@ -35,7 +35,21 @@ toolkit (``nvcc``) and ``g++``. It imports nothing of JAX or of
    against the port's own CPU run, bit-equal;
 7. a (2, 33, 256, 256) stack through ``dog_blob_watershed``: every frame
    labelled;
-8. the ``kernels`` line: each hand-written kernel timed on the inputs its
+8. ``train_parity``: one train-mode forward and backward of the full-width
+   U-Net (``default_unet.npz``) on a seeded (10, 64, 64) batch with targets
+   from the port's ``get_training_labels``, on the card and on the CPU:
+   BCE loss within 1e-5 relative, every gradient within 5e-3 x the largest
+   gradient, the new BatchNorm running stats within 1e-5 of each
+   statistic's largest magnitude;
+9. ``train``: ``run_experiment`` on the card fine-tunes ``default_unet.npz``
+   for 2 epochs on (10, 256, 256) chunks of the (33, 512, 512) volume
+   (ground truth: its thresholded blobs, labelled): finite losses, CSV rows,
+   per-epoch and final checkpoints, validation TIFFs read back by the port's
+   reader, and the final checkpoint segments the volume through
+   ``affinity_unet_watershed``, launching neither flood kernel; with ms a
+   step, voxels/s, peak memory, the step's FLOP bound and a CUDA-event
+   split of one step;
+10. the ``kernels`` line: each hand-written kernel timed on the inputs its
    path gave it, against its plain version, with its launches on its path,
    its steps and tile-steps (equal to the plain frontier schedule's), the
    split of its time into the init kernel and the step kernel, and its
@@ -130,6 +144,164 @@ def edt_fixture(shape, n, seed):
     return (-dist).astype(np.float32), markers.astype(np.int32), mask
 
 
+def blob_labels(vol):
+    """Ground truth of a ``blob_volume``: its blobs above a quarter of the
+    maximum, labelled by 6-connectivity."""
+    import numpy as np
+    from scipy import ndimage as ndi
+
+    return ndi.label(vol > 0.25 * vol.max())[0].astype(np.int32)
+
+
+def train_step_on(params, x, y, device):
+    """One train-mode forward and backward of a fresh U-Net holding
+    ``params``, on ``device``: (BCE loss, gradients, new running stats),
+    the tensors on the CPU, by state-dict key."""
+    import torch
+
+    from iterseg_tpu_torch.device import f32_numerics
+    from iterseg_tpu_torch.models.convert import params_from_numpy
+    from iterseg_tpu_torch.train.losses import bce_loss
+
+    net = params_from_numpy(params).to(device).train()
+    with f32_numerics():
+        loss = bce_loss(net(torch.from_numpy(x).to(device)),
+                        torch.from_numpy(y).to(device))
+        loss.backward()
+    grads = {k: p.grad.cpu() for k, p in net.named_parameters()}
+    stats = {k: v.cpu() for k, v in net.state_dict().items()
+             if k.endswith(("running_mean", "running_var"))}
+    return float(loss.detach()), grads, stats
+
+
+def conv_flops(net, x):
+    """Forward FLOPs of every convolution of ``net`` on ``x`` (2 per
+    multiply-add), counted by hooks from the shapes each one sees."""
+    import math
+
+    import torch
+
+    total = []
+
+    def hook(m, inp, out):
+        total.append(2 * out.numel() * m.in_channels // m.groups
+                     * math.prod(m.kernel_size))
+
+    hooks = [m.register_forward_hook(hook) for m in net.modules()
+             if isinstance(m, torch.nn.Conv3d)]
+    with torch.no_grad():
+        net(x)
+    for h in hooks:
+        h.remove()
+    return sum(total)
+
+
+def run_training(vol, chans, dev, chunk=(10, 256, 256), margin=(1, 64, 64)):
+    """``run_experiment`` fine-tunes ``default_unet.npz`` for two epochs on
+    ``chunk``-shaped crops of ``vol`` on ``dev``; checks its outputs and
+    that the checkpoint segments ``vol``; returns the phase's line."""
+    import statistics
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from iterseg_tpu_torch.device import f32_numerics
+    from iterseg_tpu_torch.engine.predict import DEFAULT_UNET_PATH, load_unet
+    from iterseg_tpu_torch.engine.segmentation import affinity_unet_watershed
+    from iterseg_tpu_torch.helpers import read_csv, read_tiff
+    from iterseg_tpu_torch.train.experiments import (get_experiment_dict,
+                                                     run_experiment)
+    from iterseg_tpu_torch.train.losses import bce_loss
+
+    epochs = 2
+    prof = {}
+    exp = get_experiment_dict(
+        [chans], ["finetune"],
+        [{"epochs": epochs, "weights": DEFAULT_UNET_PATH, "profile": prof}],
+        name="smoke-train", n_each=6, validation_prop=0.34)
+    exp["get_train_data"]["rng"] = np.random.default_rng(7)
+    exp["get_train_data"]["shape"] = chunk
+    gt = blob_labels(vol)
+    with tempfile.TemporaryDirectory() as out_dir:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        (path,) = run_experiment(exp, [vol], [gt], out_dir, device=dev)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        cond = os.path.dirname(path)
+        loss = read_csv(os.path.join(cond, "loss_finetune.csv"))
+        val = read_csv(os.path.join(cond, "validation-loss_finetune.csv"))
+        n_train = len(loss["loss"]) // epochs
+        n_val = len(val["validation_loss"]) // (1 + epochs)
+        check(n_train >= 1 and n_val >= 1 and n_train + n_val <= 6,
+              f"chunks: {n_train} train, {n_val} validation")
+        check(len(loss["loss"]) == n_train * epochs
+              and len(val["validation_loss"]) == n_val * (1 + epochs),
+              "CSV rows")
+        check(all(np.isfinite(loss[c]).all() for c in ("loss",) + chans)
+              and np.isfinite(val["validation_loss"]).all(),
+              "a non-finite loss")
+        names = os.listdir(cond)
+        for e in range(epochs):
+            check(any(n.endswith(f"_unet_finetune_epoch-{e}.npz")
+                      for n in names), f"no epoch-{e} checkpoint")
+        tifs = sorted(n for n in names if n.endswith("_output.tif"))
+        check(len(tifs) == n_val, f"{len(tifs)} validation TIFFs")
+        for n in tifs:
+            pages = read_tiff(os.path.join(cond, n))
+            check(pages.shape == (len(chans) * chunk[0],) + chunk[1:]
+                  and np.isfinite(pages).all(), f"TIFF {n} {pages.shape}")
+        model = load_unet(path)
+        t0 = time.perf_counter()
+        labels = affinity_unet_watershed(None, vol, None, "smoke-trained",
+                                         path, chunk_size=chunk,
+                                         margin=margin, debug=True,
+                                         devices=[dev])
+        seg_s = time.perf_counter() - t0
+        check(labels.shape == vol.shape and int(labels.max()) > 0,
+              "the fine-tuned U-Net segmented nothing")
+    steps = prof["step_s"]
+    median_s = statistics.median(steps[1:])
+    # one step at the chunk shape, split by CUDA events: forward (with the
+    # graph kept for backward), backward, the two Adam steps
+    net = model.module(dev).train()
+    opt = torch.optim.Adam(net.parameters(), lr=0.01)
+    x = torch.rand((1, 1) + chunk, device=dev, generator=torch.Generator(
+        dev).manual_seed(0))
+    y = (torch.rand((1, len(chans)) + chunk, device=dev) > 0.5).float()
+    with f32_numerics():
+        flops = conv_flops(net, x)
+        fwd_ms = cuda_ms(lambda: bce_loss(net(x), y))
+
+        def fwd_bwd():
+            opt.zero_grad(set_to_none=True)
+            bce_loss(net(x), y).backward()
+
+        fwd_bwd_ms = cuda_ms(fwd_bwd)
+        adam_ms = cuda_ms(lambda: (opt.step(), opt.step()))
+    bound_ms = 3 * flops / F32_OPS_PER_S * 1e3
+    return {"phase": "train", "chunk": list(chunk), "epochs": epochs,
+            "train_chunks": n_train, "validation_chunks": n_val,
+            "losses_first_last": [loss["loss"][0], loss["loss"][-1]],
+            "validation_first_last": [val["validation_loss"][0],
+                                      val["validation_loss"][-1]],
+            "first_step_ms": steps[0] * 1e3,
+            "median_step_ms": median_s * 1e3,
+            "step_ms": [s * 1e3 for s in steps],
+            "train_voxels_per_s": int(np.prod(chunk)) / median_s,
+            "load_ms_median": statistics.median(prof["load_s"]) * 1e3,
+            "validation_s": prof["validation_s"],
+            "run_experiment_s": run_s, "peak_bytes": peak,
+            "forward_conv_flops": flops, "flop_bound_ms": bound_ms,
+            "bound_share": bound_ms / (median_s * 1e3),
+            "split_ms": {"forward": fwd_ms, "backward": fwd_bwd_ms - fwd_ms,
+                         "adam_x2": adam_ms},
+            "segment_s": seg_s, "segment_objects": int(labels.max())}
+
+
 def cuda_ms(fn, reps=3):
     """Mean time of ``fn()`` in ms over ``reps`` runs after one warm-up,
     by CUDA events."""
@@ -204,6 +376,7 @@ def main():
     from iterseg_tpu_torch.ops import flood_kernel as fk
     from iterseg_tpu_torch.ops import image_flood_kernel as ifk
     from iterseg_tpu_torch.ops.watershed import segment_output_image
+    from iterseg_tpu_torch.train.labels import get_training_labels
 
     dev = torch.device("cuda")
     gpu = gpu_line()
@@ -454,7 +627,43 @@ def main():
           "objects": [int(st[t].max()) for t in range(len(st))],
           "seconds": dog_stack_s, "voxels_per_s": stack.size / dog_stack_s})
 
-    # 8. each kernel on its path's own inputs
+    # 8. one train step, card against CPU
+    chans = ("z-1", "y-1", "x-1", "mask", "centreness-log")
+    patch = blob_volume((10, 64, 64), 40, 6)
+    xb = (patch / patch.max()).astype(np.float32)[None, None]
+    yb = get_training_labels(blob_labels(patch), chans, (4, 1, 1)).astype(
+        np.float32)[None]
+    card = train_step_on(model.params, xb, yb, dev)
+    host = train_step_on(model.params, xb, yb, torch.device("cpu"))
+    loss_rel = abs(card[0] - host[0]) / abs(host[0])
+    gmax = max(float(g.abs().max()) for g in host[1].values())
+    grad_rel = max(float((card[1][k] - g).abs().max())
+                   for k, g in host[1].items()) / gmax
+    stats_rel = max(float((card[2][k] - v).abs().max() / v.abs().max())
+                    for k, v in host[2].items())
+    check(loss_rel <= 1e-5, f"train loss card vs CPU: {loss_rel} > 1e-5")
+    check(grad_rel <= 5e-3, f"gradients card vs CPU: {grad_rel} > 5e-3")
+    check(stats_rel <= 1e-5, f"running stats card vs CPU: {stats_rel}")
+    emit({"phase": "train_parity", "shape": list(xb.shape),
+          "channels": list(chans), "loss": card[0], "loss_rel": loss_rel,
+          "loss_bound": 1e-5, "grad_max": gmax, "grad_resid_rel": grad_rel,
+          "grad_bound": 5e-3, "stats_resid_rel": stats_rel,
+          "stats_bound": 1e-5, "gradients": len(host[1]),
+          "running_stats": len(host[2])})
+
+    # 9. fine-tune default_unet.npz through run_experiment on the card; the
+    # training path (and the default-flood segmentation after it) launches
+    # neither flood kernel
+    fk.reset_launches()
+    ifk.reset_launches()
+    train_phase = run_training(vol, chans, dev)
+    train_phase["flood_kernel_launches"] = {"affinity_flood": fk.launches(),
+                                            "image_flood": ifk.launches()}
+    check(fk.launches() == 0 and ifk.launches() == 0,
+          "the training path launched a flood kernel")
+    emit(train_phase)
+
+    # 10. each kernel on its path's own inputs
     kernels = []
     for name, mod, flood, plain, calls, path_launches, line, in_bytes in (
             ("affinity_flood", fk, fk.affinity_flood,

@@ -10,7 +10,8 @@ builds no kernel: the CUDA flood kernels (``ops/flood_kernel``,
 first use into ``build/iterseg_tpu_torch``.
 
 Entry points run on CUDA unless the caller passes a CPU device
-(``device.resolve_device``).
+(``device.resolve_device``): the segmenters, and training
+(``train_unet``, ``run_experiment``).
 """
 from __future__ import annotations
 
@@ -30,6 +31,9 @@ _LAZY = {
     "AffinityPipeline": "iterseg_tpu_torch.engine.device_pipeline",
     "DoGPipeline": "iterseg_tpu_torch.engine.device_pipeline",
     "resolve_device": "iterseg_tpu_torch.device",
+    "train_unet": "iterseg_tpu_torch.train.train",
+    "run_experiment": "iterseg_tpu_torch.train.experiments",
+    "get_experiment_dict": "iterseg_tpu_torch.train.experiments",
 }
 
 __all__ = sorted(_LAZY)

@@ -1,0 +1,259 @@
+"""File discovery, logging, and the CSV and TIFF writers of the training
+path.
+
+The port's own copy of the part of ``iterseg_tpu/helpers.py`` that training
+needs (``LINE``, ``write_log``, ``log_dir_or_None``, ``get_files``,
+``get_paths``, ``_read_any``), plus two writers so that the training path
+needs neither pandas nor PIL:
+
+- ``write_csv`` / ``read_csv``: the text layout of ``DataFrame.to_csv``
+  (an unnamed index column, minimal quoting, floats as ``repr``, NaN as an
+  empty field) and the column types ``pandas.read_csv`` would infer;
+- ``write_tiff`` / ``read_tiff``: uncompressed, baseline, multi-page
+  float32 TIFFs, one strip a page, readable by PIL as mode ``F``.
+"""
+from __future__ import annotations
+
+import csv
+import math
+import os
+import re
+import struct
+
+import numpy as np
+
+LINE = "-" * 60
+
+__all__ = [
+    "LINE",
+    "get_files",
+    "get_paths",
+    "write_log",
+    "log_dir_or_None",
+    "write_csv",
+    "read_csv",
+    "write_tiff",
+    "read_tiff",
+]
+
+
+def get_files(
+    data_dir,
+    x_regex=r"\d{6}_\d{6}_\d{1,3}_image.tif",
+    y_regex=r"\d{6}_\d{6}_\d{1,3}_labels.tif",
+):
+    x_paths = get_paths(data_dir, regex=x_regex)
+    y_paths = get_paths(data_dir, regex=y_regex)
+    m = "There is a mismatch in the number of images and training labels"
+    assert len(x_paths) == len(y_paths), m
+    return x_paths, y_paths
+
+
+def get_paths(data_dir, regex=r"\d{6}_\d{6}_\d{1,3}_output.tif"):
+    files = os.listdir(data_dir)
+    pattern = re.compile(regex)
+    paths = []
+    for f in files:
+        match = pattern.search(f)
+        if match is not None:
+            paths.append(os.path.join(data_dir, match[0]))
+    return paths
+
+
+def write_log(string, out_dir, log_name="log.txt"):
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, log_name), "a") as log:
+        log.write(string + "\n")
+
+
+def log_dir_or_None(log, out_dir):
+    return out_dir if log else None
+
+
+def _read_any(path):
+    """A zarr store, or a TIFF through PIL (imported here: TIFFs written by
+    other tools are read off the training path)."""
+    path = str(path)
+    if path.endswith((".zarr", ".zar")):
+        from .io.zarr_io import zarr_open
+
+        return np.asarray(zarr_open(path))
+    from PIL import Image
+
+    im = Image.open(path)
+    frames = []
+    try:
+        while True:
+            frames.append(np.array(im))
+            im.seek(im.tell() + 1)
+    except EOFError:
+        pass
+    arr = np.stack(frames) if len(frames) > 1 else frames[0]
+    return np.squeeze(arr)
+
+
+# ---------------------------------------------------------------------------
+# CSV in the layout of DataFrame.to_csv
+# ---------------------------------------------------------------------------
+
+_INT = re.compile(r"[+-]?\d+")
+_FLOAT = re.compile(r"[+-]?(\d+\.?\d*|\.\d+)([eE][+-]?\d+)?"
+                    r"|[+-]?(inf|Inf|INF|infinity|Infinity)|nan|NaN|NAN")
+
+
+def _is_missing(v):
+    return v is None or (isinstance(v, (float, np.floating))
+                         and math.isnan(v))
+
+
+def _is_int(v):
+    return isinstance(v, (int, np.integer)) and not isinstance(
+        v, (bool, np.bool_))
+
+
+def _column_text(values):
+    """One column's fields as ``to_csv`` writes its dtype: int64 as ints,
+    float64 (ints and floats, or ints with a gap) as ``repr`` floats,
+    object as ``str``; a missing value is an empty field."""
+    present = [v for v in values if not _is_missing(v)]
+    if all(_is_int(v) for v in present) and len(present) == len(values):
+        return [str(int(v)) for v in values]
+    if all(_is_int(v) or isinstance(v, (float, np.floating))
+           for v in present):
+        return ["" if _is_missing(v) else repr(float(v)) for v in values]
+    return ["" if _is_missing(v) else str(v) for v in values]
+
+
+def write_csv(path, columns, index=None):
+    """``pd.DataFrame(columns).to_csv(path)``: ``columns`` maps each name to
+    a list of values (int, float, str, or None for missing); ``index``
+    defaults to 0..n-1."""
+    names = list(columns)
+    n = len(columns[names[0]]) if names else 0
+    index = list(range(n)) if index is None else list(index)
+    texts = [_column_text(list(columns[c])) for c in names]
+    if any(len(t) != n for t in texts) or len(index) != n:
+        raise ValueError("write_csv: columns and index differ in length")
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f, lineterminator="\n")
+        w.writerow([""] + names)
+        for i in range(n):
+            w.writerow([str(index[i])] + [t[i] for t in texts])
+
+
+def _header_names(header):
+    """``pandas.read_csv`` column names: an empty name is ``Unnamed: i``;
+    a repeated name becomes ``name.1``, ``name.2``..., the given names
+    keeping theirs before the unnamed ones are mangled."""
+    names = [h if h else f"Unnamed: {i}" for i, h in enumerate(header)]
+    unnamed = [i for i, h in enumerate(header) if not h]
+    counts = {}
+    for i in [i for i in range(len(names)) if i not in unnamed] + unnamed:
+        col = old = names[i]
+        cur = counts.get(col, 0)
+        if cur > 0:
+            while cur > 0:
+                counts[old] = cur + 1
+                col = f"{old}.{cur}"
+                cur = cur + 1 if col in names else counts.get(col, 0)
+            names[i] = col
+        counts[col] = cur + 1
+    return names
+
+
+def _parse_column(fields):
+    """A column as ``pandas.read_csv`` would type it: ints when every field
+    is an int, floats when every present field is a number (an empty field
+    is NaN), else strings (an empty field is missing)."""
+    present = [f for f in fields if f != ""]
+    if present and len(present) == len(fields) and all(
+            _INT.fullmatch(f) for f in fields):
+        return [int(f) for f in fields]
+    if all(_FLOAT.fullmatch(f) for f in present):
+        return [float(f) if f != "" else None for f in fields]
+    return [f if f != "" else None for f in fields]
+
+
+def read_csv(path):
+    """The columns of a CSV as ``pandas.read_csv(path)`` gives them (no
+    index column: the first column of a ``to_csv`` file is ``Unnamed: 0``),
+    as a dict of lists."""
+    with open(path, newline="") as f:
+        rows = list(csv.reader(f))
+    names = _header_names(rows[0])
+    body = rows[1:]
+    return {name: _parse_column([r[j] if j < len(r) else "" for r in body])
+            for j, name in enumerate(names)}
+
+
+# ---------------------------------------------------------------------------
+# Baseline multi-page float32 TIFF
+# ---------------------------------------------------------------------------
+
+_SHORT, _LONG = 3, 4
+_TAGS = (256, 257, 258, 259, 262, 273, 277, 278, 279, 284, 339)
+
+
+def write_tiff(path, planes):
+    """Write ``planes`` (any array whose last two axes are (y, x); the
+    leading axes are flattened into the page sequence) as an uncompressed
+    little-endian baseline TIFF of 32-bit float pages, one strip a page."""
+    arr = np.ascontiguousarray(np.asarray(planes, dtype="<f4"))
+    h, w = arr.shape[-2:]
+    pages = arr.reshape((-1, h, w))
+    n_entries = len(_TAGS)
+    ifd_bytes = 2 + 12 * n_entries + 4
+    page_bytes = h * w * 4
+    stride = ifd_bytes + page_bytes + (-(ifd_bytes + page_bytes) % 4)
+    if 8 + stride * len(pages) >= 2 ** 32:
+        raise ValueError("write_tiff: the file would exceed 4 GiB")
+    with open(path, "wb") as f:
+        f.write(b"II" + struct.pack("<HI", 42, 8))
+        for i, page in enumerate(pages):
+            ifd = 8 + i * stride
+            data = ifd + ifd_bytes
+            nxt = ifd + stride if i + 1 < len(pages) else 0
+            values = {256: (_LONG, w), 257: (_LONG, h), 258: (_SHORT, 32),
+                      259: (_SHORT, 1), 262: (_SHORT, 1),
+                      273: (_LONG, data), 277: (_SHORT, 1),
+                      278: (_LONG, h), 279: (_LONG, page_bytes),
+                      284: (_SHORT, 1), 339: (_SHORT, 3)}
+            f.write(struct.pack("<H", n_entries))
+            for tag in _TAGS:
+                typ, v = values[tag]
+                if typ == _SHORT:
+                    f.write(struct.pack("<HHIHH", tag, typ, 1, v, 0))
+                else:
+                    f.write(struct.pack("<HHII", tag, typ, 1, v))
+            f.write(struct.pack("<I", nxt))
+            f.write(page.tobytes())
+            f.write(b"\0" * (stride - ifd_bytes - page_bytes))
+
+
+def read_tiff(path):
+    """The (pages, y, x) float32 array of a TIFF that ``write_tiff``
+    wrote. Raises ``ValueError`` on any other layout."""
+    with open(path, "rb") as f:
+        buf = f.read()
+    if buf[:4] != b"II*\0":
+        raise ValueError(f"{path}: not a little-endian TIFF")
+    (off,) = struct.unpack_from("<I", buf, 4)
+    pages = []
+    while off:
+        (n,) = struct.unpack_from("<H", buf, off)
+        tags = {}
+        for k in range(n):
+            tag, typ, count, raw = struct.unpack_from(
+                "<HHI4s", buf, off + 2 + 12 * k)
+            if count != 1 or typ not in (_SHORT, _LONG):
+                raise ValueError(f"{path}: tag {tag} is not one value")
+            fmt = "<H" if typ == _SHORT else "<I"
+            tags[tag] = struct.unpack_from(fmt, raw)[0]
+        if (tags.get(258), tags.get(259), tags.get(339), tags.get(277)) != (
+                32, 1, 3, 1):
+            raise ValueError(f"{path}: not uncompressed float32 pages")
+        h, w = tags[257], tags[256]
+        start = tags[273]
+        pages.append(np.frombuffer(buf, "<f4", h * w, start).reshape(h, w))
+        (off,) = struct.unpack_from("<I", buf, off + 2 + 12 * n)
+    return np.stack(pages).astype(np.float32)

@@ -15,7 +15,11 @@ unchanged. Invariants kept exactly:
 - the decoder crops ``[..., :-1, :-1]`` and ``[..., 1:-1, 1:-1]``;
 - any number of decoder forks sharing one encoder;
 - eval BatchNorm folded to ``x * scale + shift`` exactly as the JAX model
-  computes it (train-mode BatchNorm is the training slice's).
+  computes it; in train mode (``net.train()``) ``nn.BatchNorm3d``'s batch
+  statistics: the biased variance normalises, and the running stats move
+  with momentum 0.1 towards the batch mean and the unbiased variance
+  (``batchnorm_train`` in the JAX model);
+- ``init_weights(seed)``: the distributions of the JAX ``init_params``.
 
 The convolutions are ``torch.nn.functional.conv3d`` (cuDNN on the GPU); the
 JAX package runs them as XLA, not Pallas, so they are not kernels to port.
@@ -104,9 +108,12 @@ class ConvModule(nn.Module):
         self.batch1 = nn.BatchNorm3d(cout)
         self.final = final
 
+    def _bn(self, x, bn: nn.BatchNorm3d):
+        return bn(x) if self.training else _bn_eval(x, bn)
+
     def forward(self, x):
-        x = torch.relu(_bn_eval(self.conv0(x), self.batch0))
-        x = _bn_eval(self.conv1(x), self.batch1)
+        x = torch.relu(self._bn(self.conv0(x), self.batch0))
+        x = self._bn(self.conv1(x), self.batch1)
         return _final_activation(x, self.final)
 
 
@@ -123,7 +130,8 @@ def _upsample(x, up: nn.ConvTranspose3d, factors):
 
 class UNet(nn.Module):
     """The iterseg U-Net (ForkedUNet when ``spec.forked``). NCZYX in and
-    out; inference (eval BatchNorm) only."""
+    out. Built in eval mode; ``train()`` switches BatchNorm to batch
+    statistics."""
 
     def __init__(self, spec: Optional[UNetSpec] = None):
         super().__init__()
@@ -143,6 +151,29 @@ class UNet(nn.Module):
             setattr(self, name, nn.ConvTranspose3d(c, c, k, stride=k,
                                                    groups=c))
         self.eval()
+
+    def init_weights(self, seed: int = 0) -> "UNet":
+        """Fresh weights with the distributions of the JAX ``init_params``
+        (torch's defaults): kaiming-uniform with a=sqrt(5) over fan-in,
+        biases uniform in +-1/sqrt(fan-in), BatchNorm weight 1 and bias 0,
+        running stats 0 and 1. A conv's fan-in is cin x prod(kernel); the
+        grouped ``up*`` transposes, weight (C, 1, k...), take prod(kernel).
+        Drawn from a CPU ``torch.Generator`` seeded by ``seed``, so call it
+        before moving the module to a card. The draws are not those of
+        ``jax.random``."""
+        gen = torch.Generator().manual_seed(int(seed))
+        a = 5.0 ** 0.5
+        with torch.no_grad():
+            for m in self.modules():
+                if isinstance(m, (nn.Conv3d, nn.ConvTranspose3d)):
+                    fan_in = m.weight[0].numel()
+                    bound = (2.0 / (1 + a * a)) ** 0.5 * (3.0 / fan_in) ** 0.5
+                    m.weight.uniform_(-bound, bound, generator=gen)
+                    b = 1.0 / fan_in ** 0.5
+                    m.bias.uniform_(-b, b, generator=gen)
+                elif isinstance(m, nn.BatchNorm3d):
+                    m.reset_parameters()
+        return self
 
     @staticmethod
     def _pool(x, factors):

@@ -1,10 +1,14 @@
 """Tests of the port that need a CUDA card: the hand-written kernels (the
-affinity and the image flood) have no CPU mode. Every test carries the ``cuda`` marker and skips without a card.
+affinity and the image flood) have no CPU mode, and training is held on the
+card against the CPU. Every test carries the ``cuda`` marker and skips
+without a card.
 This file imports neither JAX nor ``iterseg_tpu``, so it also runs on a GPU
 machine that has only torch:
 
     python -m pytest tests/test_torch_cuda.py -m cuda
 """
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -213,3 +217,73 @@ def test_dog_fast_path_and_pallas_on_card(cuda):
     assert ifk.launches() > before
     np.testing.assert_array_equal(pallas > 0, fast > 0)
     assert set(np.unique(pallas)) == set(np.unique(fast))
+
+
+def train_step_on(net, x, y, device):
+    """One train-mode forward and backward of ``net`` on ``device``: the
+    BCE loss, the gradients and the new running stats, on the CPU."""
+    from iterseg_tpu_torch.device import f32_numerics
+    from iterseg_tpu_torch.train.losses import bce_loss
+
+    net = net.to(device).train()
+    with f32_numerics():
+        loss = bce_loss(net(torch.from_numpy(x).to(device)),
+                        torch.from_numpy(y).to(device))
+        loss.backward()
+    grads = {k: p.grad.cpu() for k, p in net.named_parameters()}
+    stats = {k: v.cpu() for k, v in net.state_dict().items()
+             if k.endswith(("running_mean", "running_var"))}
+    return float(loss.detach()), grads, stats
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+    """The ``train_parity`` bounds of chip_smoke.py: loss within 1e-5
+    relative, every gradient within 5e-3 x the largest gradient, running
+    stats within 1e-5 of each statistic's largest magnitude."""
+    from iterseg_tpu_torch.engine.predict import load_unet
+    from iterseg_tpu_torch.models.convert import params_from_numpy
+    from iterseg_tpu_torch.train.labels import get_training_labels
+
+    r = np.random.default_rng(6)
+    vol = np.zeros((10, 64, 64), np.float32)
+    pts = np.stack([r.integers(1, s - 1, size=30) for s in vol.shape], 1)
+    vol[tuple(pts.T)] = 1.0
+    vol = ndi.gaussian_filter(vol, (1, 3, 3))
+    vol /= vol.max()
+    gt = ndi.label(vol > 0.25)[0]
+    x = vol[None, None]
+    y = get_training_labels(gt, ("z-1", "y-1", "x-1", "mask",
+                                 "centreness-log"), (4, 1, 1),
+                            device=cuda).astype(np.float32)[None]
+    params = load_unet(None).params
+    card = train_step_on(params_from_numpy(params), x, y, cuda)
+    host = train_step_on(params_from_numpy(params), x, y,
+                         torch.device("cpu"))
+    assert abs(card[0] - host[0]) <= 1e-5 * abs(host[0])
+    gmax = max(float(g.abs().max()) for g in host[1].values())
+    for k, g in host[1].items():
+        assert float((card[1][k] - g).abs().max()) <= 5e-3 * gmax, k
+    for k, v in host[2].items():
+        assert float((card[2][k] - v).abs().max()) <= 1e-5 * float(
+            v.abs().max()), k
+
+
+def test_train_unet_on_card_writes_a_checkpoint(cuda, tmp_path):
+    from iterseg_tpu_torch.engine.predict import load_unet
+    from iterseg_tpu_torch.train.train import train_unet
+
+    r = np.random.default_rng(1)
+    xs = [r.random((4, 32, 32), dtype=np.float32) for _ in range(3)]
+    ys = [(r.random((5, 4, 32, 32)) > 0.5).astype(np.float32)
+          for _ in range(3)]
+    model, path = train_unet(xs[:2], xs[2:], ys[:2], ys[2:],
+                             out_dir=str(tmp_path), name="card", epochs=2)
+    assert path is not None and os.path.exists(path)
+    with np.load(path) as z:
+        assert not any(k.endswith("num_batches_tracked") for k in z.files)
+    out = load_unet(path)(np.zeros((1, 1, 4, 32, 32), np.float32))
+    assert out.device.type == "cuda" and out.shape == (1, 5, 4, 32, 32)
+    assert torch.isfinite(out).all()
+    np.testing.assert_array_equal(
+        out.cpu().numpy(),
+        model(np.zeros((1, 1, 4, 32, 32), np.float32)).cpu().numpy())

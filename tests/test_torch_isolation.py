@@ -34,7 +34,8 @@ def test_imports_with_jax_blocked():
         "assert 'DoG-blob-watershed' in p.segmenters\n"
         "assert p.segmenters['DoG-blob-watershed'] is p.dog_blob_watershed\n"
         "for name in ('unet_mask', 'otsu_mask', 'blob_watershed', "
-        "'DoGPipeline'):\n"
+        "'DoGPipeline', 'train_unet', 'run_experiment', "
+        "'get_experiment_dict'):\n"
         "    assert callable(getattr(p, name)), name\n"
         "bad = [m for m in sys.modules if m == 'iterseg_tpu' or "
         "m.startswith('iterseg_tpu.')]\n"
@@ -61,10 +62,28 @@ def test_no_jax_or_reference_imports(path):
     assert not IMPORT.findall(src), path
 
 
-def test_default_device_needs_cuda():
+MODULE_LEVEL_IMPORT = re.compile(r"^(from|import)\s+(pandas|PIL)\b",
+                                 re.MULTILINE)
+
+
+@pytest.mark.parametrize("path", sorted(
+    str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")))
+def test_no_module_level_pandas_or_pil(path):
+    """The machine with the card has neither: the port may import them
+    only inside a function that is off the paths it drives."""
+    src = (ROOT / path).read_text()
+    assert not MODULE_LEVEL_IMPORT.findall(src), path
+
+
+def test_default_device_needs_cuda(tmp_path):
     from iterseg_tpu_torch.device import resolve_device
     from iterseg_tpu_torch.engine.segmentation import (
         affinity_unet_watershed, dog_blob_watershed)
+    from iterseg_tpu_torch.train.experiments import (get_experiment_dict,
+                                                     run_experiment)
+    from iterseg_tpu_torch.train.labels import smooth
+    from iterseg_tpu_torch.train.train import train_unet
+    from iterseg_tpu_torch.train.train_io import get_train_data
 
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -76,6 +95,18 @@ def test_default_device_needs_cuda():
     with pytest.raises(RuntimeError, match="CUDA"):
         dog_blob_watershed(None, np.ones((10, 32, 32), np.uint16),
                            debug=True)
+    x = [np.ones((2, 16, 16), np.float32)]
+    y = [np.ones((5, 2, 16, 16), np.float32)]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_unet(x, [], y, [], epochs=1)
+    exp = get_experiment_dict([("mask",)], ["c"], n_each=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_experiment(exp, x, [np.ones((2, 16, 16), int)], str(tmp_path))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        get_train_data(x, [np.ones((2, 16, 16), int)], None, n_each=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        smooth(np.ones((2, 8, 8)))
+    assert not list(tmp_path.iterdir())
     assert resolve_device("cpu") == torch.device("cpu")
 
 
