@@ -49,7 +49,24 @@ toolkit (``nvcc``) and ``g++``. It imports nothing of JAX or of
    ``affinity_unet_watershed``, launching neither flood kernel; with ms a
    step, voxels/s, peak memory, the step's FLOP bound and a CUDA-event
    split of one step;
-10. the ``kernels`` line: each hand-written kernel timed on the inputs its
+10. ``loop``: iterseg's loop through the CLI (``cli.main``, in this
+   process) on the same volume, saved as a zarr store: ``segment
+   --device-flood pallas`` with each segmenter (two launches of its flood
+   kernel, none of the other, labels bit-equal to phases 4 and 6); ground
+   truth harvested from two 128 x 128 ROIs of phase 4's default-flood labels
+   (``_ground_truth_from_ROI``); ``train`` on it (1 epoch, ``--n-each 2``);
+   ``segment --network`` with the new checkpoint and the default flood (no
+   kernel launch); and ``widgets.model_assessment`` of that segmentation
+   against the default-flood labels (scores, stats and AP CSVs, finite rows,
+   VI >= 0). The CLI's ``assess`` is not called: it plots, and the card's
+   machine may have no matplotlib;
+11. ``serve``: ``serve --once`` with ``{"unet": "default", "device_flood":
+   "pallas"}`` drains a watch directory of three zarr stores (phase 4's
+   volume, a second (33, 512, 512) volume, a (2, 33, 256, 256) stack): exit
+   status 0, three ``.done`` markers, two affinity launches a frame, the
+   first volume's labels bit-equal to ``loop``'s CLI labels; each volume's
+   seconds from its marker (the first pays the server's U-Net load);
+12. the ``kernels`` line: each hand-written kernel timed on the inputs its
    path gave it, against its plain version, with its launches on its path,
    its steps and tile-steps (equal to the plain frontier schedule's), the
    split of its time into the init kernel and the step kernel, and its
@@ -302,6 +319,209 @@ def run_training(vol, chans, dev, chunk=(10, 256, 256), margin=(1, 64, 64)):
             "segment_s": seg_s, "segment_objects": int(labels.max())}
 
 
+def read_zarr(path):
+    """A zarr store (level 0 of an OME-Zarr one), as numpy."""
+    import numpy as np
+
+    from iterseg_tpu_torch.io.zarr_io import zarr_open
+
+    return np.asarray(zarr_open(path))
+
+
+def save_volume(path, data):
+    """``data`` as a zarr store at ``path``, one chunk a frame."""
+    from iterseg_tpu_torch.io.zarr_io import open_zarr
+
+    arr = open_zarr(path, shape=data.shape,
+                    chunks=(1,) * (data.ndim - 3) + data.shape[-3:],
+                    dtype=data.dtype)
+    arr[...] = data
+    return path
+
+
+def cli_segment(argv):
+    """``python -m iterseg_tpu_torch segment ...`` in this process, with
+    both floods' launch counts set to 0 just before and read just after;
+    returns ({flood: launches}, seconds)."""
+    import torch
+
+    from iterseg_tpu_torch.cli import main
+    from iterseg_tpu_torch.ops import flood_kernel as fk
+    from iterseg_tpu_torch.ops import image_flood_kernel as ifk
+
+    fk.reset_launches()
+    ifk.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    check(main(["segment"] + argv) == 0, f"segment {argv} failed")
+    torch.cuda.synchronize()
+    return ({"affinity_flood": fk.launches(), "image_flood": ifk.launches()},
+            time.perf_counter() - t0)
+
+
+def run_loop(vol, main_labels, dog_labels, work):
+    """Phase ``loop``: iterseg's loop through the CLI on ``vol`` (segment
+    with each CUDA flood, harvest ground truth from two ROIs, train,
+    segment with the new checkpoint, assess); returns the phase's line and
+    the affinity CLI labels."""
+    import numpy as np
+
+    from iterseg_tpu_torch import widgets
+    from iterseg_tpu_torch.cli import main
+    from iterseg_tpu_torch.core.chunks import get_slices_from_chunks
+    from iterseg_tpu_torch.helpers import read_csv
+    from iterseg_tpu_torch.viewer import Viewer
+
+    src = save_volume(os.path.join(work, "vol.zarr"), vol)
+    out = os.path.join(work, "seg")
+    line = {"phase": "loop", "shape": list(vol.shape)}
+    # 1-2. both segmenters with the CUDA flood, against phases 4 and 6
+    runs = {}
+    for name, flood, extra, want in (
+            ("affinity", "affinity_flood", [], main_labels["pallas"]),
+            ("dog", "image_flood", ["--segmenter", "DoG-blob-watershed"],
+             dog_labels["pallas"])):
+        launches, seconds = cli_segment([
+            "--input", src, "--output-dir", out, "--name", name,
+            "--device-flood", "pallas"] + extra)
+        labels = read_zarr(os.path.join(out, f"{name}.ome.zarr"))
+        check(launches == {"affinity_flood": 0, "image_flood": 0,
+                           flood: 2},
+              f"CLI {name} flood: {launches} launches, not 2")
+        check(np.array_equal(labels, want),
+              f"CLI {name} labels differ from the direct call's")
+        runs[name] = labels
+        line[f"segment_{name}_pallas"] = {
+            "launches": launches, "seconds": seconds,
+            "voxels_per_s": vol.size / seconds, "equal_to_direct": True,
+            "objects": int(labels.max())}
+    # 3. harvest ground truth from two 128 x 128 ROIs of the default labels
+    viewer = Viewer()
+    image = viewer.add_image(vol, name="image")
+    truth = viewer.add_labels(main_labels["host"], name="labels")
+    rois = viewer.add_shapes(
+        [np.array([[0, y, x], [0, y, x + 127], [0, y + 127, x + 127],
+                   [0, y + 127, x]], float)
+         for y, x in ((64, 64), (vol.shape[1] - 192, vol.shape[2] - 192))],
+        name="rois")
+    np.random.seed(0)
+    t0 = time.perf_counter()
+    widgets._ground_truth_from_ROI(viewer, image, truth, rois, work,
+                                   "roi-gt")
+    harvest_s = time.perf_counter() - t0
+    gt_frames = read_zarr(os.path.join(work, "roi-gt_labels.zarr"))
+    check(gt_frames.shape == (2,) + vol.shape and gt_frames.max() > 0,
+          f"harvested ground truth {gt_frames.shape}")
+    # 4. train on the harvested frames
+    t0 = time.perf_counter()
+    check(main(["train", "--images", os.path.join(work, "roi-gt_img.zarr"),
+                "--labels", os.path.join(work, "roi-gt_labels.zarr"),
+                "--output-dir", os.path.join(work, "train"),
+                "--training-name", "loop", "--epochs", "1", "--n-each", "2",
+                "--validation-prop", "0.5", "--no-predict"]) == 0,
+          "train failed")
+    train_s = time.perf_counter() - t0
+    ckpts = [os.path.join(d, f)
+             for d, _, files in os.walk(os.path.join(work, "train"))
+             for f in files if f.endswith("_unet_loop.npz")]
+    check(len(ckpts) == 1, f"checkpoints: {ckpts}")
+    # 5. segment with the new checkpoint and the default flood
+    launches, retrained_s = cli_segment([
+        "--input", src, "--output-dir", out, "--name", "retrained",
+        "--network", ckpts[0]])
+    check(launches == {"affinity_flood": 0, "image_flood": 0},
+          f"the default flood launched a kernel: {launches}")
+    retrained = read_zarr(os.path.join(out, "retrained.ome.zarr"))
+    check(retrained.shape == vol.shape, f"labels {retrained.shape}")
+    # 6. assess against the default-flood labels (the CLI's assess also
+    # plots, and this machine may have no matplotlib)
+    assess_dir = os.path.join(work, "assess")
+    slices = get_slices_from_chunks(vol.shape, (10, 256, 256), (1, 64, 64))
+    t0 = time.perf_counter()
+    (scores, ap), stats = widgets.model_assessment(
+        main_labels["host"], retrained, "loop", "retrained", slices,
+        assess_dir, True, True, True, 10)
+    assess_s = time.perf_counter() - t0
+    for f in ("scores", "stats", "AP_curve"):
+        check(os.path.exists(os.path.join(assess_dir,
+                                          f"loop_retrained_{f}.csv")),
+              f"no {f} CSV")
+    table = read_csv(os.path.join(assess_dir, "loop_retrained_scores.csv"))
+    numbers = [c for c in table if c != "model_name"]
+    check(len(table["model_name"]) >= 2 and ap is not None,
+          f"{len(table['model_name'])} assessed chunks")
+    check(all(np.isfinite(np.asarray(table[c], float)).all()
+              for c in numbers), "a non-finite score")
+    vi = np.asarray(table["VI: GT | Output"] + table["VI: Output | GT"])
+    check((vi >= 0).all(), "a negative VI")
+    line.update({
+        "harvest_s": harvest_s, "harvested_shape": list(gt_frames.shape),
+        "train_s": train_s, "checkpoint": os.path.basename(ckpts[0]),
+        "retrained_segment_s": retrained_s,
+        "retrained_flood_launches": launches,
+        "retrained_objects": int(retrained.max()),
+        "assess_s": assess_s, "assessed_chunks": len(table["model_name"]),
+        "vi_gt_given_output_mean": float(np.mean(
+            table["VI: GT | Output"])),
+        "vi_output_given_gt_mean": float(np.mean(
+            table["VI: Output | GT"])),
+        "ap_at_0.5": float(ap["average_precision"][4]),
+        "cli_assess": "not run: it plots, and matplotlib may be absent here",
+    })
+    return line, runs["affinity"]
+
+
+def run_serve(vol, stack, loop_labels, work):
+    """Phase ``serve``: ``serve --once`` drains a watch directory of three
+    stores with a ``"pallas"`` config; returns the phase's line."""
+    import numpy as np
+
+    from iterseg_tpu_torch.cli import main
+    from iterseg_tpu_torch.ops import flood_kernel as fk
+
+    watch_dir, out = os.path.join(work, "in"), os.path.join(work, "out")
+    os.makedirs(watch_dir)
+    inputs = (("a-vol", vol), ("b-vol", blob_volume(vol.shape, 900, 8)),
+              ("c-stack", stack))
+    now = time.time()
+    for i, (stem, data) in enumerate(inputs):
+        path = save_volume(os.path.join(watch_dir, stem + ".zarr"), data)
+        os.utime(path, (now - 60 + i, now - 60 + i))  # served in this order
+    cfg = os.path.join(work, "cfg.json")
+    with open(cfg, "w") as f:
+        json.dump({"unet": "default", "device_flood": "pallas"}, f)
+    fk.reset_launches()
+    t0 = time.perf_counter()
+    rc = main(["serve", "--watch-dir", watch_dir, "--output-dir", out,
+               "--network", cfg, "--once"])
+    serve_s = time.perf_counter() - t0
+    launches = fk.launches()
+    check(rc == 0, f"serve exited {rc}")
+    frames = sum(1 if d.ndim == 3 else d.shape[0] for _, d in inputs)
+    check(launches == 2 * frames,
+          f"serve: {launches} affinity launches for {frames} frames")
+    seconds, served = {}, {}
+    for stem, data in inputs:
+        marker = os.path.join(out, stem + ".done")
+        check(os.path.exists(marker), f"no marker {marker}")
+        with open(marker) as f:
+            seconds[stem] = float(f.read().splitlines()[1].rstrip("s"))
+        served[stem] = read_zarr(os.path.join(out, stem + ".ome.zarr"))
+        check(served[stem].shape == data.shape
+              and int(served[stem].max()) > 0, f"served {stem}")
+    check(np.array_equal(served["a-vol"], loop_labels),
+          "served labels differ from the CLI's")
+    return {"phase": "serve", "inputs": {s: list(d.shape) for s, d in inputs},
+            "config": {"unet": "default", "device_flood": "pallas"},
+            "exit_status": rc, "affinity_launches": launches,
+            "frames": frames, "equal_to_cli": True,
+            "seconds": seconds, "serve_s": serve_s,
+            "cold_voxels_per_s": vol.size / seconds["a-vol"],
+            "warm_voxels_per_s": vol.size / seconds["b-vol"],
+            "stack_voxels_per_s": stack.size / seconds["c-stack"],
+            "objects": {s: int(v.max()) for s, v in served.items()}}
+
+
 def cuda_ms(fn, reps=3):
     """Mean time of ``fn()`` in ms over ``reps`` runs after one warm-up,
     by CUDA events."""
@@ -490,6 +710,7 @@ def main():
     fk.affinity_flood = flood
     dp.AffinityPipeline.segment = segment
     host, pallas = runs["host"][0], runs["pallas"][0]
+    main_labels = {"host": host, "pallas": pallas}
     check(captured and main_launches == 2 * len(captured),
           f"{main_launches} kernel launches for {len(captured)} floods")
     check(dp.flood_fallbacks() == 0, "the device flood fell back")
@@ -571,6 +792,7 @@ def main():
     ifk.image_flood = image_flood
     dp.DoGPipeline.segment = dog_segment
     host, pallas = dog_runs["host"][0], dog_runs["pallas"][0]
+    dog_labels = {"host": host, "pallas": pallas}
     check(image_captured and dog_launches == 2 * len(image_captured),
           f"{dog_launches} image kernel launches for "
           f"{len(image_captured)} floods")
@@ -663,7 +885,18 @@ def main():
           "the training path launched a flood kernel")
     emit(train_phase)
 
-    # 10. each kernel on its path's own inputs
+    # 10-11. the loop and the server through the CLI, each path with the
+    # launch counts set to 0 just before it and read just after
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as work:
+        loop_phase, loop_labels = run_loop(vol, main_labels, dog_labels,
+                                           work)
+        emit(loop_phase)
+    with tempfile.TemporaryDirectory() as work:
+        emit(run_serve(vol, stack, loop_labels, work))
+
+    # 12. each kernel on its path's own inputs
     kernels = []
     for name, mod, flood, plain, calls, path_launches, line, in_bytes in (
             ("affinity_flood", fk, fk.affinity_flood,

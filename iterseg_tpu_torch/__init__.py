@@ -10,8 +10,13 @@ builds no kernel: the CUDA flood kernels (``ops/flood_kernel``,
 first use into ``build/iterseg_tpu_torch``.
 
 Entry points run on CUDA unless the caller passes a CPU device
-(``device.resolve_device``): the segmenters, and training
-(``train_unet``, ``run_experiment``).
+(``device.resolve_device``): the segmenters, training (``train_unet``,
+``run_experiment``), the widgets' headless twins and the CLI
+(``python -m iterseg_tpu_torch``, ``--device cpu`` for the CPU).
+
+Every name of the JAX package's ``__all__`` is exported here, with
+``generate_ground_truth`` as the same alias of ``ground_truth_from_ROI``
+(the reference's ``__all__`` names a function it does not define).
 """
 from __future__ import annotations
 
@@ -19,7 +24,24 @@ import importlib
 
 __version__ = "0.1.0"
 
+_WIDGETS = "iterseg_tpu_torch.widgets"
+
 _LAZY = {
+    "train_from_viewer": _WIDGETS,
+    "_train_from_viewer": _WIDGETS,
+    "load_data": _WIDGETS,
+    "_load_data": _WIDGETS,
+    "segment_data": _WIDGETS,
+    "combine_layers": _WIDGETS,
+    "assess_segmentation": _WIDGETS,
+    "_assess_segmentation": _WIDGETS,
+    "compare_segmentations": _WIDGETS,
+    "save_frames": _WIDGETS,
+    "ground_truth_from_ROI": _WIDGETS,
+    "_ground_truth_from_ROI": _WIDGETS,
+    "generate_ground_truth": _WIDGETS,
+    "Viewer": "iterseg_tpu_torch.viewer",
+    "UNetModel": "iterseg_tpu_torch.engine.predict",
     "segmenters": "iterseg_tpu_torch.engine.segmentation",
     "affinity_unet_watershed": "iterseg_tpu_torch.engine.segmentation",
     "dog_blob_watershed": "iterseg_tpu_torch.engine.segmentation",
@@ -36,11 +58,15 @@ _LAZY = {
     "get_experiment_dict": "iterseg_tpu_torch.train.experiments",
 }
 
-__all__ = sorted(_LAZY)
+# names exported under another module attribute
+_ALIASES = {"generate_ground_truth": "ground_truth_from_ROI"}
+
+__all__ = sorted(n for n in _LAZY if not n.startswith("_"))
 
 
 def __getattr__(name):
     if name in _LAZY:
-        return getattr(importlib.import_module(_LAZY[name]), name)
+        return getattr(importlib.import_module(_LAZY[name]),
+                       _ALIASES.get(name, name))
     raise AttributeError(
         f"module 'iterseg_tpu_torch' has no attribute {name!r}")

@@ -1,10 +1,11 @@
-"""File discovery, logging, and the CSV and TIFF writers of the training
-path.
+"""File discovery, logging, lazy image stacks, and the CSV and TIFF
+writers of the training and evaluation paths.
 
-The port's own copy of the part of ``iterseg_tpu/helpers.py`` that training
-needs (``LINE``, ``write_log``, ``log_dir_or_None``, ``get_files``,
-``get_paths``, ``_read_any``), plus two writers so that the training path
-needs neither pandas nor PIL:
+The port's own copy of ``iterseg_tpu/helpers.py`` (``LINE``, ``write_log``,
+``log_dir_or_None``, ``get_files``, ``get_paths``, ``_read_any``,
+``get_ids``, ``check_ids_match``, ``LazyImageStack``, ``get_regex_images``,
+``get_data_by_id``, ``get_dataset``, ``get_dataset_segs``), plus two
+writers so that training and evaluation need neither pandas nor PIL:
 
 - ``write_csv`` / ``read_csv``: the text layout of ``DataFrame.to_csv``
   (an unnamed index column, minimal quoting, floats as ``repr``, NaN as an
@@ -19,6 +20,7 @@ import math
 import os
 import re
 import struct
+from pathlib import Path
 
 import numpy as np
 
@@ -30,6 +32,13 @@ __all__ = [
     "get_paths",
     "write_log",
     "log_dir_or_None",
+    "get_ids",
+    "check_ids_match",
+    "get_regex_images",
+    "LazyImageStack",
+    "get_data_by_id",
+    "get_dataset",
+    "get_dataset_segs",
     "write_csv",
     "read_csv",
     "write_tiff",
@@ -71,8 +80,8 @@ def log_dir_or_None(log, out_dir):
 
 
 def _read_any(path):
-    """A zarr store, or a TIFF through PIL (imported here: TIFFs written by
-    other tools are read off the training path)."""
+    """A zarr store, or a TIFF through PIL (imported here, so that only a
+    TIFF read needs it: the machine with the card has no PIL)."""
     path = str(path)
     if path.endswith((".zarr", ".zar")):
         from .io.zarr_io import zarr_open
@@ -90,6 +99,155 @@ def _read_any(path):
         pass
     arr = np.stack(frames) if len(frames) > 1 else frames[0]
     return np.squeeze(arr)
+
+
+def get_ids(paths, regex=r"\d{6}_\d{6}_\d{1,3}"):
+    pattern = re.compile(regex)
+    ids = []
+    for p in paths:
+        name = Path(p).stem
+        match = pattern.search(name)
+        if match is None:
+            raise ValueError(
+                "Irregular ID for training data file: must be "
+                "YYMMDD_HHMMSS_<digit>"
+            )
+        ids.append(match[0])
+    return ids
+
+
+def check_ids_match(x, y, regex=r"\d{6}_\d{6}_\d{1,3}"):
+    pattern = re.compile(regex)
+    assert len(x) == len(y)
+    for i in range(len(x)):
+        if not os.path.exists(x[i]):
+            assert x[i] == y[i]
+        else:
+            xid = pattern.search(Path(x[i]).stem)[0]
+            yid = pattern.search(Path(y[i]).stem)[0]
+            assert xid == yid
+
+
+class LazyImageStack:
+    """Stack of same-shape images read on demand (dask-stack equivalent,
+    parity: helpers.py:157-180)."""
+
+    def __init__(self, paths):
+        self.paths = list(paths)
+        sample = _read_any(self.paths[0])
+        self.frame_shape = sample.shape
+        self.dtype = sample.dtype
+        self._cache = {0: sample}
+
+    @property
+    def shape(self):
+        return (len(self.paths),) + self.frame_shape
+
+    @property
+    def ndim(self):
+        return 1 + len(self.frame_shape)
+
+    def __len__(self):
+        return len(self.paths)
+
+    def _stack_all(self):
+        # ragged frames zero-pad to the common shape on materialisation —
+        # the same contract as the eager path (widgets.correct_shape)
+        from .widgets import correct_shape
+
+        return np.stack(correct_shape([self[j]
+                                       for j in range(len(self))]))
+
+    def __getitem__(self, i):
+        if isinstance(i, (int, np.integer)):
+            i = int(i) % len(self.paths)
+            if i not in self._cache:
+                self._cache[i] = np.squeeze(_read_any(self.paths[i]))
+            return self._cache[i]
+        return self._stack_all()[i]
+
+    def __array__(self, dtype=None, copy=None):
+        arr = self._stack_all()
+        return arr.astype(dtype) if dtype is not None else arr
+
+
+def get_regex_images(data_dir, regex, ids, id_regex=r"\d{6}_\d{6}_\d{1,3}"):
+    """ID-ordered lazy image stack (parity: helpers.py:157-180)."""
+    id_pattern = re.compile(id_regex)
+    file_paths = sorted(get_paths(data_dir, regex))
+    correct_paths = []
+    for ID in ids:
+        id_done = False
+        for f in file_paths:
+            n = Path(f).stem
+            if id_pattern.search(n)[0] == ID:
+                correct_paths.append(f)
+                id_done = True
+        assert id_done, f"No file match was found for ID: {ID}"
+    return LazyImageStack(correct_paths)
+
+
+_ID_REGEX = r"\d{6}_\d{6}_\d{1,3}"
+
+
+def _run_ids_from_outputs(out_dir, validation):
+    """Run IDs discovered from the train loop's saved prediction files
+    (``<id>_output.tif`` / ``<id>_validation_output.tif``) — these anchor
+    which runs a dataset directory contains."""
+    suffix = "_validation_output.tif" if validation else "_output.tif"
+    return get_ids(sorted(get_paths(out_dir, _ID_REGEX + suffix)))
+
+
+def get_data_by_id(train_dir, suffixes, out_dir=None, validation=False):
+    """One lazy stack per suffix, frames ordered by the run IDs of the
+    prediction files in ``out_dir`` (behaviour parity: reference
+    helpers.py:137-154)."""
+    ids = _run_ids_from_outputs(out_dir or train_dir, validation)
+    return tuple(
+        get_regex_images(train_dir, _ID_REGEX + s, ids) for s in suffixes
+    )
+
+
+def get_dataset(train_dir, out_dir=None, GT=False, validation=False,
+                return_ID=False):
+    """Training-run stacks matched by run ID (behaviour parity: reference
+    helpers.py:95-127).
+
+    Observable-order note: the reference's implementation crosses its
+    ``labs``/``images`` bindings, so its first returned stack is the
+    ``_labels.tif`` one and its second the ``_image.tif`` one despite the
+    variable names. Callers depend on what it *does*, so this port keeps
+    that order: ``(labels, image, output[, GT][, ids])``.
+    """
+    out_dir = out_dir or train_dir
+    o_s = "_validation_output.tif" if validation else "_output.tif"
+    suffixes = ["_image.tif", "_labels.tif", o_s] + (
+        ["_GT.tif"] if GT else []
+    )
+    # one directory scan: the same id list orders the stacks and is what
+    # return_ID hands back (a second scan could disagree if files land
+    # between listings)
+    ids = _run_ids_from_outputs(out_dir, validation)
+    stacks = {
+        s: get_regex_images(train_dir, _ID_REGEX + s, ids) for s in suffixes
+    }
+    ordered = [stacks["_labels.tif"], stacks["_image.tif"], stacks[o_s]]
+    if GT:
+        ordered.append(stacks["_GT.tif"])
+    if return_ID:
+        ordered.append(ids)
+    return tuple(ordered)
+
+
+def get_dataset_segs(train_dir, out_dir=None, validation=True):
+    """(GT, segmentation, DoG-segmentation, image) stacks by run ID
+    (behaviour parity: reference helpers.py:130-134)."""
+    return get_data_by_id(
+        train_dir,
+        ("_GT.tif", "_segmentation.tif", "_DoG-segmentation.tif",
+         "_image.tif"),
+        out_dir=out_dir, validation=validation,
+    )
 
 
 # ---------------------------------------------------------------------------

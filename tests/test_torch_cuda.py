@@ -1,7 +1,7 @@
 """Tests of the port that need a CUDA card: the hand-written kernels (the
-affinity and the image flood) have no CPU mode, and training is held on the
-card against the CPU. Every test carries the ``cuda`` marker and skips
-without a card.
+affinity and the image flood) have no CPU mode, training is held on the
+card against the CPU, and the CLI and the server drive the CUDA flood.
+Every test carries the ``cuda`` marker and skips without a card.
 This file imports neither JAX nor ``iterseg_tpu``, so it also runs on a GPU
 machine that has only torch:
 
@@ -287,3 +287,64 @@ def test_train_unet_on_card_writes_a_checkpoint(cuda, tmp_path):
     np.testing.assert_array_equal(
         out.cpu().numpy(),
         model(np.zeros((1, 1, 4, 32, 32), np.float32)).cpu().numpy())
+
+
+def blob_zarr(path, shape, seed):
+    """A seeded blob volume saved as a float32 zarr store; returns it."""
+    from iterseg_tpu_torch.io.zarr_io import open_zarr
+
+    r = np.random.default_rng(seed)
+    vol = np.zeros(shape, np.float32)
+    pts = np.stack([r.integers(1, s - 1, size=30) for s in shape], 1)
+    vol[tuple(pts.T)] = 1.0
+    vol = ndi.gaussian_filter(vol, (1, 3, 3))
+    vol /= vol.max()
+    arr = open_zarr(str(path), shape=shape, chunks=shape, dtype=np.float32)
+    arr[...] = vol
+    return vol
+
+
+def test_cli_segment_pallas_on_card(cuda, tmp_path):
+    """``segment --device-flood pallas`` through the CLI: one flood, two
+    kernel launches, labels equal to the direct segmenter call."""
+    from iterseg_tpu_torch.cli import main
+    from iterseg_tpu_torch.engine.segmentation import affinity_unet_watershed
+    from iterseg_tpu_torch.io.zarr_io import open_zarr
+
+    vol = blob_zarr(tmp_path / "vol.zarr", (10, 96, 96), 0)
+    fk.reset_launches()
+    assert main(["segment", "--input", str(tmp_path / "vol.zarr"),
+                 "--output-dir", str(tmp_path), "--name", "cli",
+                 "--chunk-size", "10,64,64", "--margin", "1,16,16",
+                 "--device-flood", "pallas"]) == 0
+    assert fk.launches() == 2
+    got = np.asarray(open_zarr(str(tmp_path / "cli.ome.zarr" / "0")))
+    want = affinity_unet_watershed(None, vol, None, "x", None,
+                                   chunk_size=(10, 64, 64),
+                                   margin=(1, 16, 16), debug=True,
+                                   device_flood="pallas")
+    assert got.max() > 0
+    np.testing.assert_array_equal(got, want)
+
+
+def test_serve_once_pallas_on_card(cuda, tmp_path):
+    """``serve --once`` over two volumes with a ``"pallas"`` config: no
+    error, two launches of the affinity kernel per frame."""
+    import json
+
+    from iterseg_tpu_torch.cli import main
+
+    w = tmp_path / "in"
+    w.mkdir()
+    blob_zarr(w / "a.zarr", (10, 96, 96), 1)
+    blob_zarr(w / "b.zarr", (10, 64, 64), 2)
+    cfg = tmp_path / "cfg.json"
+    cfg.write_text(json.dumps({"unet": "default", "device_flood": "pallas"}))
+    fk.reset_launches()
+    assert main(["serve", "--watch-dir", str(w), "--output-dir",
+                 str(tmp_path / "out"), "--network", str(cfg),
+                 "--chunk-size", "10,64,64", "--margin", "1,16,16",
+                 "--once"]) == 0
+    assert fk.launches() == 2 * 2
+    assert sorted(os.listdir(tmp_path / "out")) == [
+        "a.done", "a.ome.zarr", "b.done", "b.ome.zarr"]

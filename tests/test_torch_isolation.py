@@ -1,6 +1,7 @@
 """The port stands alone: it imports without JAX, no module of it (nor
 chip_smoke.py) imports ``iterseg_tpu``, and its entry points need CUDA
 unless the caller names another device."""
+import ast
 import pathlib
 import re
 import subprocess
@@ -37,6 +38,12 @@ def test_imports_with_jax_blocked():
         "'DoGPipeline', 'train_unet', 'run_experiment', "
         "'get_experiment_dict'):\n"
         "    assert callable(getattr(p, name)), name\n"
+        f"for name in {JAX_ALL!r}:\n"
+        "    assert getattr(p, name) is not None, name\n"
+        "assert p.generate_ground_truth is p.ground_truth_from_ROI\n"
+        "from iterseg_tpu_torch.cli import main\n"
+        "from iterseg_tpu_torch.engine.serve import SegmentationServer\n"
+        "from iterseg_tpu_torch.eval.metrics import get_accuracy_metrics\n"
         "bad = [m for m in sys.modules if m == 'iterseg_tpu' or "
         "m.startswith('iterseg_tpu.')]\n"
         "assert not bad, bad\n"
@@ -48,6 +55,26 @@ def test_imports_with_jax_blocked():
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip().endswith("ok")
     assert len(MODULES) > 20
+
+
+# the JAX package's __all__ (iterseg_tpu/__init__.py), which the port exports
+JAX_ALL = [
+    "train_from_viewer", "segment_data", "combine_layers",
+    "generate_ground_truth", "assess_segmentation", "compare_segmentations",
+    "load_data", "save_frames", "ground_truth_from_ROI", "segmenters",
+    "affinity_unet_watershed", "dog_blob_watershed", "unet_mask",
+    "otsu_mask", "blob_watershed", "load_unet", "predict_volume",
+    "UNetModel", "train_unet", "run_experiment", "get_experiment_dict",
+    "Viewer",
+]
+
+
+def test_exports_cover_the_jax_all():
+    import iterseg_tpu
+    import iterseg_tpu_torch
+
+    assert sorted(iterseg_tpu.__all__) == sorted(JAX_ALL)
+    assert set(JAX_ALL) <= set(iterseg_tpu_torch.__all__)
 
 
 IMPORT = re.compile(r"^\s*(from|import)\s+(iterseg_tpu|jax)\b(?!_torch)",
@@ -62,17 +89,40 @@ def test_no_jax_or_reference_imports(path):
     assert not IMPORT.findall(src), path
 
 
-MODULE_LEVEL_IMPORT = re.compile(r"^(from|import)\s+(pandas|PIL)\b",
-                                 re.MULTILINE)
+OFF_CARD = {"pandas", "PIL", "matplotlib", "seaborn", "napari", "magicgui"}
+
+
+def module_level_imports(src):
+    """The top-level packages a module imports when it is imported: every
+    import outside a function body (``try`` and ``if`` blocks and class
+    bodies included)."""
+    found = set()
+
+    def visit(nodes):
+        for node in nodes:
+            if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                continue
+            if isinstance(node, ast.Import):
+                found.update(a.name.split(".")[0] for a in node.names)
+            elif isinstance(node, ast.ImportFrom) and not node.level:
+                found.add(node.module.split(".")[0])
+            for field in ("body", "orelse", "finalbody", "handlers"):
+                visit(getattr(node, field, []))
+
+    visit(ast.parse(src).body)
+    return found
 
 
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")))
 def test_no_module_level_pandas_or_pil(path):
-    """The machine with the card has neither: the port may import them
-    only inside a function that is off the paths it drives."""
+    """The machine with the card has no pandas, PIL, matplotlib, seaborn,
+    napari or magicgui: the port imports them only inside a function that
+    is off the paths it drives on the card."""
     src = (ROOT / path).read_text()
-    assert not MODULE_LEVEL_IMPORT.findall(src), path
+    assert not module_level_imports(src) & OFF_CARD, path
+    assert module_level_imports("try:\n    import napari\nexcept "
+                                "ImportError:\n    pass\n") == {"napari"}
 
 
 def test_default_device_needs_cuda(tmp_path):
