@@ -35,13 +35,30 @@ toolkit (``nvcc``) and ``g++``. It imports nothing of JAX or of
    against the port's own CPU run, bit-equal;
 7. a (2, 33, 256, 256) stack through ``dog_blob_watershed``: every frame
    labelled;
-8. ``train_parity``: one train-mode forward and backward of the full-width
+8. ``floods`` (one line a pipeline, and one ``card_vs_cpu`` line): the
+   device floods of ROADMAP slice 3 through both segmenters on the same
+   (33, 512, 512) volume. ``"exact"``: labels bit-equal to phases 4 and 6's
+   default-flood labels, with its path, uncertain and tie fractions and
+   the certificate's seconds. ``"xla"``: equal support and ids, agreement
+   >= 0.9, no fallback, labels bit-equal to the CUDA flood's (the same
+   claim rule at ``inner_cap=1``), with ``n_iters``. ``"pallas"`` with
+   ``flood_telemetry`` (affinity): the labels' disagreement with the
+   default flood within ``flood_disagreement_bound``, the certificate
+   converged. ``True``: the probed link rate, ``linkprobe.MEASURED``, what
+   ``True`` resolved to (``"pallas"`` or ``False``, never ``"xla"``) and
+   the crossover ``W*`` from phases 4 and 6's profiles. The certificate's
+   seconds a phase on the inputs each path gave it. Then on a seeded
+   (16, 128, 128) fixture, card against CPU bit for bit: the certificate
+   (all five outputs), the verified flood with both guards off (the
+   repair runs; when resolved, equal to the host heap) and
+   ``wavefront_flood`` in both modes;
+9. ``train_parity``: one train-mode forward and backward of the full-width
    U-Net (``default_unet.npz``) on a seeded (10, 64, 64) batch with targets
    from the port's ``get_training_labels``, on the card and on the CPU:
    BCE loss within 1e-5 relative, every gradient within 5e-3 x the largest
    gradient, the new BatchNorm running stats within 1e-5 of each
    statistic's largest magnitude;
-9. ``train``: ``run_experiment`` on the card fine-tunes ``default_unet.npz``
+10. ``train``: ``run_experiment`` on the card fine-tunes ``default_unet.npz``
    for 2 epochs on (10, 256, 256) chunks of the (33, 512, 512) volume
    (ground truth: its thresholded blobs, labelled): finite losses, CSV rows,
    per-epoch and final checkpoints, validation TIFFs read back by the port's
@@ -49,7 +66,7 @@ toolkit (``nvcc``) and ``g++``. It imports nothing of JAX or of
    ``affinity_unet_watershed``, launching neither flood kernel; with ms a
    step, voxels/s, peak memory, the step's FLOP bound and a CUDA-event
    split of one step;
-10. ``loop``: iterseg's loop through the CLI (``cli.main``, in this
+11. ``loop``: iterseg's loop through the CLI (``cli.main``, in this
    process) on the same volume, saved as a zarr store: ``segment
    --device-flood pallas`` with each segmenter (two launches of its flood
    kernel, none of the other, labels bit-equal to phases 4 and 6); ground
@@ -60,13 +77,13 @@ toolkit (``nvcc``) and ``g++``. It imports nothing of JAX or of
    against the default-flood labels (scores, stats and AP CSVs, finite rows,
    VI >= 0). The CLI's ``assess`` is not called: it plots, and the card's
    machine may have no matplotlib;
-11. ``serve``: ``serve --once`` with ``{"unet": "default", "device_flood":
+12. ``serve``: ``serve --once`` with ``{"unet": "default", "device_flood":
    "pallas"}`` drains a watch directory of three zarr stores (phase 4's
    volume, a second (33, 512, 512) volume, a (2, 33, 256, 256) stack): exit
    status 0, three ``.done`` markers, two affinity launches a frame, the
    first volume's labels bit-equal to ``loop``'s CLI labels; each volume's
    seconds from its marker (the first pays the server's U-Net load);
-12. the ``kernels`` line: each hand-written kernel timed on the inputs its
+13. the ``kernels`` line: each hand-written kernel timed on the inputs its
    path gave it, against its plain version, with its launches on its path,
    its steps and tile-steps (equal to the plain frontier schedule's), the
    split of its time into the init kernel and the step kernel, and its
@@ -522,6 +539,240 @@ def run_serve(vol, stack, loop_labels, work):
             "objects": {s: int(v.max()) for s, v in served.items()}}
 
 
+def prod_fixture(shape, n, seed):
+    """Three distinct smooth affinity channels (a trained U-Net's class,
+    where the certificate certifies or repairs), seeds at the 5³ peaks."""
+    import numpy as np
+    from scipy import ndimage as ndi
+
+    r = np.random.default_rng(seed)
+    vol = np.zeros(shape, np.float32)
+    pts = np.stack([r.integers(3, s - 3, size=n) for s in shape], 1)
+    vol[tuple(pts.T)] = 1.0
+    vol = ndi.gaussian_filter(vol, (1.5, 3, 3))
+    vol /= vol.max()
+    aff = np.stack([ndi.gaussian_filter(
+        1.0 - vol + r.normal(0, 0.01, shape).astype(np.float32), 0.5)
+        for _ in range(3)]).astype(np.float32)
+    mask = vol > 0.08
+    for a in range(3):
+        mask[(slice(None),) * a + (0,)] = False
+        mask[(slice(None),) * a + (-1,)] = False
+    peaks = np.argwhere((vol == ndi.maximum_filter(vol, size=5)) & mask)
+    return aff, peaks, mask
+
+
+def profiled_calls(cls):
+    """Patch ``cls.segment`` so that every call records its profile dict;
+    returns the list of dicts and a function that undoes the patch."""
+    real = cls.segment
+    profiles = []
+
+    def segment(self, *args, profile=None, **kw):
+        profiles.append({} if profile is None else profile)
+        return real(self, *args, profile=profiles[-1], **kw)
+
+    cls.segment = segment
+    return profiles, lambda: setattr(cls, "segment", real)
+
+
+def crossover_mbps(default, pallas):
+    """``W*`` of one pipeline (``engine/linkprobe``'s derivation): the
+    bytes the ``"pallas"`` path moves beyond the default path's, over the
+    seconds it saves (the default's ``flood`` + ``gather_*`` less its
+    ``device_flood``), in MB/s; 0 when it moves no more bytes, infinite
+    when it saves no time."""
+    def moved(p):
+        return sum(v for k, v in p.items() if k.startswith("bytes_"))
+
+    extra = moved(pallas) - moved(default)
+    saved = (default["flood"] + sum(v for k, v in default.items()
+                                    if k.startswith("gather_"))
+             - pallas["device_flood"])
+    w = float("inf") if saved <= 0 else max(extra, 0) / saved / 2 ** 20
+    return {"extra_bytes": extra, "saved_s": saved, "w_mbps": w,
+            "default_bytes": {k: v for k, v in default.items()
+                              if k.startswith("bytes_")},
+            "pallas_bytes": {k: v for k, v in pallas.items()
+                             if k.startswith("bytes_")}}
+
+
+def run_floods(vol, main_labels, dog_labels, profiles, dev, kwargs):
+    """Phase ``floods``: the device floods of ROADMAP slice 3 through the
+    entry points on phases 4's and 6's volume (``"exact"``, ``"xla"``,
+    ``"pallas"`` with ``flood_telemetry``, ``True``), the certificate's
+    time a phase on the inputs the paths gave it, the link crossover, and
+    the certificate, the verified flood and both wavefront modes held card
+    against CPU on a seeded (16, 128, 128) fixture. Returns the lines."""
+    import numpy as np
+    import torch
+
+    from iterseg_tpu_torch.engine import device_pipeline as dp
+    from iterseg_tpu_torch.engine import linkprobe
+    from iterseg_tpu_torch.engine.segmentation import (
+        affinity_unet_watershed, dog_blob_watershed)
+    from iterseg_tpu_torch.ops import device_flood as df
+    from iterseg_tpu_torch.ops import flood_exact as fe
+    from iterseg_tpu_torch.ops.watershed import affinity_watershed
+
+    lines = []
+    captured = {}
+    originals = {name: getattr(fe, name) for name in (
+        "verified_exact_flood", "verified_exact_image_flood")}
+
+    def capture(name):
+        def run(*args, **kw):
+            captured[name] = args[:3]  # the inputs the path gave the flood
+            return originals[name](*args, **kw)
+        return run
+    for pipe, cls, entry, want_labels in (
+            ("affinity", dp.AffinityPipeline, affinity_unet_watershed,
+             main_labels),
+            ("dog", dp.DoGPipeline, dog_blob_watershed, dog_labels)):
+        host = want_labels["host"]
+        sel = host > 0
+        profiles_now, undo = profiled_calls(cls)
+        for name in originals:
+            setattr(fe, name, capture(name))
+        runs = {}
+        modes = [("exact", "exact", {}), ("xla", "xla", {})]
+        if pipe == "affinity":
+            modes.append(("pallas_telemetry", "pallas",
+                          {"flood_telemetry": True}))
+        for name, mode, extra in modes:
+            dp.reset_flood_fallbacks()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            labels = entry(None, vol, None, "smoke-" + name, None,
+                           device_flood=mode, **kwargs, **extra)
+            torch.cuda.synchronize()
+            runs[name] = (labels, time.perf_counter() - t0,
+                          profiles_now[-1], dp.flood_fallbacks())
+        undo()
+        for name, real in originals.items():
+            setattr(fe, name, real)
+        line = {"phase": "floods", "pipeline": pipe,
+                "shape": list(vol.shape),
+                "profile": {k: v[2] for k, v in runs.items()}}
+        labels, sec, prof, _ = runs["exact"]
+        check(np.array_equal(labels, host),
+              f"{pipe} exact labels differ from the default flood's")
+        line["exact"] = {
+            "equal_to_default": True, "seconds": sec,
+            "certificate_s": prof.get("flood_certificate"),
+            **{k: prof.get(k) for k in (
+                "flood_exact_path", "flood_uncertain_frac",
+                "flood_tie_frac", "flood_tie_frac_scope",
+                "flood_speculative", "flood_spec_waited", "flood",
+                "device_flood")}}
+        labels, sec, prof, fallbacks = runs["xla"]
+        check(fallbacks == 0 and "flood_fallback" not in prof,
+              f"{pipe} xla fell back")
+        check(np.array_equal(labels > 0, sel)
+              and set(np.unique(labels)) == set(np.unique(host)),
+              f"{pipe} xla support or ids differ")
+        agreement = float((labels[sel] == host[sel]).mean())
+        check(agreement >= 0.9, f"{pipe} xla agreement {agreement}")
+        # the CUDA kernels at inner_cap=1 run the same claim rule to the
+        # same fixed point
+        check(np.array_equal(labels, want_labels["pallas"]),
+              f"{pipe} xla labels differ from the CUDA flood's")
+        line["xla"] = {"seconds": sec, "n_iters": prof["flood_iters"],
+                       "device_flood_s": prof["device_flood"],
+                       "agreement": agreement, "equal_to_pallas": True,
+                       "fallbacks": fallbacks}
+        if pipe == "affinity":
+            labels, sec, prof, _ = runs["pallas_telemetry"]
+            disagree = int((labels != host).sum())
+            bound = prof["flood_disagreement_bound"] * prof[
+                "flood_mask_voxels"]
+            check(prof["flood_certificate_converged"] is True,
+                  "telemetry certificate did not converge")
+            check(disagree <= bound + 0.5,
+                  f"telemetry bound {bound} < {disagree} disagreeing")
+            check(np.array_equal(labels, main_labels["pallas"]),
+                  "pallas labels changed under telemetry")
+            line["pallas_telemetry"] = {
+                "seconds": sec, "disagreeing_voxels": disagree,
+                "bound_voxels": bound,
+                **{k: prof[k] for k in (
+                    "flood_uncertain_frac", "flood_mismatch_certain_frac",
+                    "flood_disagreement_bound", "flood_mask_voxels",
+                    "flood_certificate_converged", "flood_telemetry")}}
+        cross = crossover_mbps(profiles[pipe]["host"],
+                               profiles[pipe]["pallas"])
+        resolved = cls.normalize_device_flood(True)
+        check(resolved in ("pallas", False), f"True resolved to {resolved}")
+        line["true"] = {"link_mbps": linkprobe.measure_link_mbps(),
+                        "measured": dict(linkprobe.MEASURED),
+                        "resolved": resolved, "crossover": cross}
+        # the certificate a phase on this path's inputs, the tie probe off
+        # (with it on, a tie-heavy landscape skips the certificate)
+        key = ("verified_exact_flood" if pipe == "affinity"
+               else "verified_exact_image_flood")
+        check(key in captured, f"{pipe} exact never reached {key}")
+        inputs = captured[key]
+        core = (fe.certificate_flood_core if pipe == "affinity"
+                else fe.image_certificate_flood_core)
+        _, unc, _, _, conv = core(*inputs)  # also the warm-up
+        phases = {}
+        core(*inputs, phase_s=phases)
+        verified = fe.verified_exact_flood if pipe == "affinity" else \
+            fe.verified_exact_image_flood
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = verified(*inputs, tie_probe=0.0)
+        torch.cuda.synchronize()
+        line["certificate"] = {
+            "grid": list(inputs[2].shape), "phase_s": phases,
+            "converged": conv, "uncertain": int(unc.sum()),
+            "mask_voxels": int(inputs[2].sum()),
+            "verified_probe_off_s": time.perf_counter() - t0,
+            "verified_probe_off": {"resolved": out[1], "unc_count": out[2]}}
+        lines.append(line)
+
+    # card against CPU, bit for bit, on a seeded (16, 128, 128) fixture
+    cpu = torch.device("cpu")
+    # 30 objects, seed 3: 5 voxels stay uncertain and the repair resolves
+    aff, coords, mask = prod_fixture((16, 128, 128), 30, 3)
+    seeds = np.zeros(mask.shape, np.int32)
+    seeds[tuple(coords.T)] = np.arange(1, len(coords) + 1, dtype=np.int32)
+    on = {d: [torch.from_numpy(a).to(d) for a in (aff, seeds, mask)]
+          for d in (dev, cpu)}
+    card = fe.certificate_flood_core(*on[dev])
+    host_c = fe.certificate_flood_core(*on[cpu])
+    for g, w, what in zip(card[:4], host_c[:4], ("rep", "unc", "v_lb",
+                                                  "v_ub")):
+        check(torch.equal(g.cpu(), w), f"certificate {what}: card != CPU")
+    check(card[4] == host_c[4] and card[4], "certificate convergence")
+    card = fe.verified_exact_flood(*on[dev], tie_probe=0.0, repair_doom=0.0)
+    host_v = fe.verified_exact_flood(*on[cpu], tie_probe=0.0,
+                                     repair_doom=0.0)
+    check(torch.equal(card[0].cpu(), host_v[0]) and card[1:] == host_v[1:],
+          "verified flood: card != CPU")
+    check(card[1] and card[2] > 0, f"the repair did not run and resolve: "
+          f"{card[1:]}")
+    check(np.array_equal(card[0].cpu().numpy(),
+                         affinity_watershed(aff, coords, mask)),
+          "verified flood != host heap")
+    wave = {}
+    for mode in ("claim", "minimax"):
+        got = df.wavefront_flood(*on[dev], mode=mode)
+        want = df.wavefront_flood(*on[cpu], mode=mode)
+        check(torch.equal(got[0].cpu(), want[0]) and got[1:] == want[1:],
+              f"wavefront {mode}: card != CPU")
+        wave[mode] = {"n_iters": got[1], "converged": got[2]}
+    lines.append({"phase": "floods", "pipeline": "card_vs_cpu",
+                  "shape": list(mask.shape), "seeds": len(coords),
+                  "certificate_equal": True,
+                  "certificate_uncertain": int(host_c[1].sum()),
+                  "verified_equal": True, "verified_resolved": card[1],
+                  "verified_unc_count": card[2],
+                  "verified_equals_heap": True,
+                  "wavefront_equal": wave})
+    return lines
+
+
 def cuda_ms(fn, reps=3):
     """Mean time of ``fn()`` in ms over ``reps`` runs after one warm-up,
     by CUDA events."""
@@ -678,14 +929,7 @@ def main():
     # 4. the main path, one (33, 512, 512) volume, both flood modes
     vol = blob_volume((33, 512, 512), 900, 2)
     kwargs = dict(chunk_size=(10, 256, 256), margin=(1, 64, 64), debug=True)
-    profiles = []
-    segment = dp.AffinityPipeline.segment
-
-    def profiled(self, volume, out=None, profile=None):
-        profiles.append({} if profile is None else profile)
-        return segment(self, volume, out=out, profile=profiles[-1])
-
-    dp.AffinityPipeline.segment = profiled
+    profiles, undo_profiles = profiled_calls(dp.AffinityPipeline)
     captured = []
     flood = fk.affinity_flood
 
@@ -708,7 +952,7 @@ def main():
         runs[name] = (labels, time.perf_counter() - t0, profiles[-1])
     main_launches = fk.launches()
     fk.affinity_flood = flood
-    dp.AffinityPipeline.segment = segment
+    undo_profiles()
     host, pallas = runs["host"][0], runs["pallas"][0]
     main_labels = {"host": host, "pallas": pallas}
     check(captured and main_launches == 2 * len(captured),
@@ -756,15 +1000,7 @@ def main():
     # 6. the DoG path, one (33, 512, 512) volume, both flood modes
     import warnings
 
-    dog_profiles = []
-    dog_segment = dp.DoGPipeline.segment
-
-    def dog_profiled(self, volume, out=None, profile=None, normalize=False):
-        dog_profiles.append({} if profile is None else profile)
-        return dog_segment(self, volume, out=out, profile=dog_profiles[-1],
-                           normalize=normalize)
-
-    dp.DoGPipeline.segment = dog_profiled
+    dog_profiles, undo_profiles = profiled_calls(dp.DoGPipeline)
     image_captured = []
     image_flood = ifk.image_flood
 
@@ -790,7 +1026,7 @@ def main():
     dog_launches = ifk.launches()
     dog_fallbacks = dp.flood_fallbacks()
     ifk.image_flood = image_flood
-    dp.DoGPipeline.segment = dog_segment
+    undo_profiles()
     host, pallas = dog_runs["host"][0], dog_runs["pallas"][0]
     dog_labels = {"host": host, "pallas": pallas}
     check(image_captured and dog_launches == 2 * len(image_captured),
@@ -849,7 +1085,15 @@ def main():
           "objects": [int(st[t].max()) for t in range(len(st))],
           "seconds": dog_stack_s, "voxels_per_s": stack.size / dog_stack_s})
 
-    # 8. one train step, card against CPU
+    # 8. the device floods of slice 3 on the same volume: "exact", "xla",
+    # "pallas" with telemetry, True; the certificate's phases; card vs CPU
+    for line in run_floods(vol, main_labels, dog_labels, {
+            "affinity": {k: runs[k][2] for k in ("host", "pallas")},
+            "dog": {k: dog_runs[k][2] for k in ("host", "pallas")}},
+            dev, kwargs):
+        emit(line)
+
+    # 9. one train step, card against CPU
     chans = ("z-1", "y-1", "x-1", "mask", "centreness-log")
     patch = blob_volume((10, 64, 64), 40, 6)
     xb = (patch / patch.max()).astype(np.float32)[None, None]
@@ -873,7 +1117,7 @@ def main():
           "stats_bound": 1e-5, "gradients": len(host[1]),
           "running_stats": len(host[2])})
 
-    # 9. fine-tune default_unet.npz through run_experiment on the card; the
+    # 10. fine-tune default_unet.npz through run_experiment on the card; the
     # training path (and the default-flood segmentation after it) launches
     # neither flood kernel
     fk.reset_launches()
@@ -885,7 +1129,7 @@ def main():
           "the training path launched a flood kernel")
     emit(train_phase)
 
-    # 10-11. the loop and the server through the CLI, each path with the
+    # 11-12. the loop and the server through the CLI, each path with the
     # launch counts set to 0 just before it and read just after
     import tempfile
 
@@ -896,7 +1140,7 @@ def main():
     with tempfile.TemporaryDirectory() as work:
         emit(run_serve(vol, stack, loop_labels, work))
 
-    # 12. each kernel on its path's own inputs
+    # 13. each kernel on its path's own inputs
     kernels = []
     for name, mod, flood, plain, calls, path_launches, line, in_bytes in (
             ("affinity_flood", fk, fk.affinity_flood,
@@ -948,10 +1192,9 @@ def main():
         })
     emit({"kernels": kernels})
     print(gpu_line(), flush=True)
-    # the run drives one card, whatever else the host shows
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
-                                 "count": 1}})
+                                 "count": torch.cuda.device_count()}})
     return 0
 
 

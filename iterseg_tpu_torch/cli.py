@@ -15,8 +15,7 @@ One option is the port's own: ``--device``, before the subcommand, names
 the torch device that ``segment``, ``train`` and ``serve`` run on (default:
 CUDA, an error without a card; ``--device cpu`` runs on the CPU). What the
 port has not ported yet raises and exits non-zero: ``pod-segment`` and
-several cards (ROADMAP slice 7), ``--device-flood auto|xla|exact`` and
-``--flood-telemetry`` on the affinity segmenter (slice 3).
+several cards (ROADMAP slice 7).
 
 Every command prints the paths it wrote so shell pipelines can consume
 them. All heavy compute runs through the exact same code paths as the
@@ -274,12 +273,14 @@ def build_parser():
     p.add_argument("--device-flood", default=None,
                    choices=["auto", "xla", "pallas", "exact"],
                    help="run the watershed flood on the device: pallas "
-                        "= the approximate CUDA flood kernel; auto, xla "
-                        "and exact raise until ROADMAP slice 3")
+                        "= the approximate CUDA flood kernel, xla = the "
+                        "approximate torch recurrence, exact = the "
+                        "verified flood (labels bit-equal to the host "
+                        "flood's), auto = pallas or the host flood by the "
+                        "measured link rate (xla on the CPU)")
     p.add_argument("--flood-telemetry", action="store_true",
-                   help="report a per-run disagreement bound for "
-                        "approximate flood modes (raises on the affinity "
-                        "segmenter until ROADMAP slice 3)")
+                   help="report a rigorous per-run disagreement bound "
+                        "for approximate flood modes")
     _add_common_io(p)
     p.set_defaults(fn=_cmd_segment)
 

@@ -6,9 +6,21 @@ keeps everything up to the candidates on the GPU; the host receives only the
 bit-packed threshold mask, the live prefix of the sorted peak candidates and
 the affinities at masked voxels (an async copy into pinned memory that runs
 under the host's spacing and size-filter work), then runs the exact C++ heap
-flood. With ``device_flood="pallas"`` the flood itself runs on the GPU in
-the hand-written CUDA kernel (``ops/flood_kernel``) and only labels come
-back.
+flood. The ``device_flood`` modes move the flood onto the device:
+
+- ``"pallas"``: the hand-written CUDA kernel (``ops/flood_kernel``), only
+  labels come back (approximate: equal support and ids);
+- ``"xla"``: the torch claim recurrence (``ops/device_flood``), JAX's
+  ``"xla"`` labels bit for bit (approximate as well);
+- ``"exact"``: the verified exact flood (``ops/flood_exact``) behind a tie
+  probe, with the exact host flood running on a worker thread meanwhile:
+  labels bit-equal to the default's on every path;
+- ``True``: ``"pallas"`` on CUDA when the measured link reaches
+  ``linkprobe.MEASURED``'s crossover, else the host flood; ``"xla"`` on
+  the CPU.
+
+``flood_telemetry=True`` runs the certificate beside ``"pallas"`` and
+``"xla"`` and reports a rigorous bound on their disagreement with the heap.
 
 Stages, per volume:
 
@@ -28,7 +40,9 @@ the card. The host prunes the blobs and labels the seeds, while the masked
 d² gather downloads underneath, then runs the exact bucket flood (the heap
 past ``native.BUCKET_FLOOD_MAX_KEY``). With ``device_flood="pallas"`` the
 flood runs on the GPU in the hand-written CUDA image kernel
-(``ops/image_flood_kernel``) on ``-sqrt(d²)``, at every frame width.
+(``ops/image_flood_kernel``) on ``-sqrt(d²)``, at every frame width;
+``"xla"`` runs the torch hop-tie recurrence there, and ``"exact"`` the
+verified exact image flood on ``-d²``.
 """
 from __future__ import annotations
 
@@ -66,9 +80,12 @@ def reset_flood_fallbacks():
 class _HostCopy:
     """A device tensor on its way to host memory: a non-blocking copy into
     pinned memory on the current stream, fenced by an event. ``get()``
-    waits for it and returns a numpy array. CPU tensors pass through."""
+    waits for that event only, so a thread may wait on it while later work
+    runs on the stream. ``tensor`` is the device tensor. CPU tensors pass
+    through."""
 
     def __init__(self, t: torch.Tensor):
+        self.tensor = t
         self._event = None
         if t.device.type == "cuda":
             self._host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
@@ -88,19 +105,76 @@ def _host(x) -> np.ndarray:
     return x.get() if isinstance(x, _HostCopy) else x.cpu().numpy()
 
 
+class _Speculative:
+    """Run ``fn(profile_dict)`` on a worker thread; ``join`` returns
+    ``(result, profile_dict)`` or re-raises the thread's exception.
+
+    ``device_flood="exact"`` runs the exact host flood here while the main
+    thread runs the certificate: a fallback then costs about the larger of
+    the two, not their sum. The worker touches only its own buffers and
+    the pipeline's host scatter buffer (which the main thread does not use
+    in that mode), waits only on the gather's own event (``_HostCopy``),
+    and the caller always joins it before returning."""
+
+    def __init__(self, fn):
+        import threading
+
+        self._prof = {}
+        self._result = None
+        self._exc = None
+
+        def run():
+            try:
+                self._result = fn(self._prof)
+            except BaseException as e:  # re-raised on join
+                self._exc = e
+
+        self._thread = threading.Thread(
+            target=run, name="iterseg-speculative-flood", daemon=True)
+
+    def start(self):
+        self._thread.start()
+
+    def join(self):
+        self._thread.join()
+        if self._exc is not None:
+            raise self._exc
+        return self._result, self._prof
+
+
 def _flood_prep(bits, coords, labs, pshape):
     """Unpack the host-packed mask bits (MSB first) and scatter the seed
     labels (max over duplicates) on the device of ``bits``."""
     psize = int(np.prod(pshape))
-    shifts = torch.arange(7, -1, -1, dtype=torch.uint8, device=bits.device)
-    flat = ((bits[:, None] >> shifts) & 1).reshape(-1)[:psize]
-    mask = flat.to(torch.bool).reshape(pshape)
+    mask = _unpack_bits(bits, pshape)
     seeds = torch.zeros(psize, dtype=torch.int32, device=bits.device)
     strides = torch.tensor([pshape[1] * pshape[2], pshape[2], 1],
                            dtype=torch.int64, device=bits.device)
     flat_idx = (coords.to(torch.int64) * strides).sum(1)
     seeds.scatter_reduce_(0, flat_idx, labs, reduce="amax")
     return mask, seeds.reshape(pshape)
+
+
+def _unpack_bits(bits, shape):
+    """The bool tensor of ``shape`` that MSB-first ``bits`` (uint8) pack."""
+    shifts = torch.arange(7, -1, -1, dtype=torch.uint8, device=bits.device)
+    flat = ((bits[:, None] >> shifts) & 1).reshape(-1)[:int(np.prod(shape))]
+    return flat.to(torch.bool).reshape(shape)
+
+
+def _tie_probe(mask_packed, aff_pad):
+    """The fraction (a float32 tensor on the device) of in-mask voxels whose
+    claim competition is exactly tied, on the pre-filter mask (JAX
+    ``_cached_tie_probe``): dispatched at the top of ``_finalize`` for
+    ``device_flood="exact"``, read after the host filter work."""
+    from ..ops.flood_exact import _affinity_ties, _edge_weights
+
+    zyx = tuple(s - 2 for s in aff_pad.shape[1:])
+    mask = torch.nn.functional.pad(_unpack_bits(mask_packed, zyx),
+                                   (1, 1, 1, 1, 1, 1))
+    ties = _affinity_ties(_edge_weights(aff_pad), mask)
+    n = mask.sum().clamp_min(1)
+    return ties.sum().to(torch.float32) / n.to(torch.float32)
 
 
 def _crop_cast(lab, wide):
@@ -280,21 +354,38 @@ def _pack_mask_bits(mask):
         1, dtype=torch.uint8)
 
 
-def _normalize_device_flood(value):
-    """``False``/``None`` -> ``False``; ``"pallas"`` stays; the modes of
-    ROADMAP slice 3 raise ``NotImplementedError``."""
-    if value in (None, False, "pallas"):
-        return value or False
-    if value is True or value == "xla":
-        raise NotImplementedError(
-            f"device_flood={value!r}: the XLA-recurrence flood and the "
-            "link-adaptive default arrive with ROADMAP slice 3 "
-            "(on-device floods); use device_flood='pallas'")
-    if value == "exact":
-        raise NotImplementedError(
-            "device_flood='exact' (certificate + repair) arrives with "
-            "ROADMAP slice 3 (on-device floods)")
-    raise ValueError(f"unknown device_flood {value!r}")
+_MODES = (False, "xla", "pallas", "exact")
+
+
+def _normalize_device_flood(value, device=None):
+    """The canonical ``device_flood`` setting: ``False`` (the exact host
+    flood), ``"xla"`` (the torch claim recurrence of ``ops/device_flood``),
+    ``"pallas"`` (the hand-written CUDA flood) or ``"exact"`` (the verified
+    exact flood of ``ops/flood_exact``, labels bit-equal to the host
+    flood's). ``True`` resolves as JAX resolves it, with the CUDA card in
+    the TPU's role: on a CUDA ``device`` (``None``: CUDA when a card is
+    visible) to ``"pallas"`` when the measured link rate
+    (``linkprobe.measure_link_mbps``) reaches
+    ``MEASURED["device_flood_crossover_mbps"]``, else to ``False``; on the
+    CPU to ``"xla"``. ``None`` is ``False``."""
+    if value is True:
+        if device is None:
+            device = "cuda" if torch.cuda.is_available() else "cpu"
+        device = torch.device(device)
+        if device.type == "cuda":
+            from . import linkprobe
+
+            mbps = linkprobe.measure_link_mbps(device)
+            value = ("pallas" if mbps is not None and mbps
+                     >= linkprobe.MEASURED["device_flood_crossover_mbps"]
+                     else False)
+        else:
+            value = "xla"
+    value = value or False
+    if value not in _MODES:
+        raise ValueError(f"unknown device_flood {value!r}; expected one of "
+                         "False, True, 'xla', 'pallas', 'exact'")
+    return value
 
 
 def _f32(x) -> float:
@@ -307,22 +398,18 @@ class AffinityPipeline:
     """U-Net → watershed segmentation of one zyx volume, device-resident."""
 
     @staticmethod
-    def normalize_device_flood(value):
-        """Canonical ``device_flood`` setting: ``False`` (the exact host
-        heap flood) or ``"pallas"`` (the approximate flood in the
-        hand-written CUDA kernel that replaces the Pallas one — the name is
-        kept so JAX callers move over unchanged)."""
-        return _normalize_device_flood(value)
+    def normalize_device_flood(value, device=None):
+        """Canonical ``device_flood`` setting (``_normalize_device_flood``):
+        ``"pallas"`` names the hand-written CUDA flood that replaces the
+        Pallas one, so JAX callers move over unchanged. Cache keys use it,
+        so ``True`` and what it resolves to share one pipeline."""
+        return _normalize_device_flood(value, device)
 
     def __init__(self, model, chunk_size=(10, 256, 256),
                  margin=(1, 64, 64), absolute_thresh=None,
                  microbatch=None, cand_capacity: int = _CAND_CAP,
                  normalize: bool = False, device_flood=False,
                  flood_telemetry: bool = False, device=None):
-        if flood_telemetry:
-            raise NotImplementedError(
-                "flood_telemetry needs the exactness certificate, which "
-                "arrives with ROADMAP slice 3 (on-device floods)")
         self.model = model
         self.chunk_size = tuple(chunk_size)
         self.margin = tuple(margin)
@@ -330,8 +417,15 @@ class AffinityPipeline:
         self.microbatch = microbatch
         self.cand_capacity = cand_capacity
         self.normalize = normalize
-        self.device_flood = self.normalize_device_flood(device_flood)
         self.device = resolve_device(device)
+        self.device_flood = self.normalize_device_flood(device_flood,
+                                                        self.device)
+        # the certificate beside the approximate floods: the profile gets a
+        # rigorous bound on the share of labels that differ from the heap's
+        self.flood_telemetry = bool(flood_telemetry)
+        # "exact" runs the host flood on a worker thread under the
+        # certificate (``_flood_exact``); labels are the same either way
+        self.speculative_flood = True
         self._programs = {}
         # (pshape, buffer): reused host scatter buffer of the flood's input
         self._aff_host = (None, None)
@@ -398,55 +492,142 @@ class AffinityPipeline:
         return (aff_pad, _HostCopy(mask_packed), order, _HostCopy(n_cand),
                 thresh, cent_smooth)
 
-    def _dispatch_gather(self, aff_pad, mask_pad):
+    def _dispatch_gather(self, aff_pad, mask_pad, profile=None):
         """Gather the affinities at the masked voxels on the device and
         start their copy to host; returns ``(pre_idx, m, vals)``."""
         pre_idx = np.flatnonzero(mask_pad.ravel())
         idx = torch.from_numpy(pre_idx).to(aff_pad.device)
         vals = _HostCopy(aff_pad.reshape(3, -1)[:, idx])
+        _moved(profile, "bytes_gather", idx)
+        _moved(profile, "bytes_gather", vals)
         return pre_idx, len(pre_idx), vals
+
+    def _upload_mask_seeds(self, aff_pad, mask_pad, centroids, profile=None):
+        """The filtered mask (as packed bits) and the seeds, labels 1..n in
+        row order, on the device of ``aff_pad``."""
+        dev = aff_pad.device
+        bits = np.packbits(mask_pad.view(np.bool_).ravel())
+        coords = np.ascontiguousarray(centroids, np.int64)
+        _moved(profile, "bytes_mask_seeds", bits)
+        _moved(profile, "bytes_mask_seeds", coords)
+        return _flood_prep(
+            torch.from_numpy(bits).to(dev), torch.from_numpy(coords).to(dev),
+            torch.arange(1, len(centroids) + 1, dtype=torch.int32,
+                         device=dev), mask_pad.shape)
 
     def _flood_on_device(self, aff_pad, mask_pad, centroids, out=None,
                          profile=None):
-        """The ``device_flood="pallas"`` flood: upload the filtered mask
-        (packed bits) and the seeds, run the CUDA flood kernel over the
-        device-resident padded affinities, download cropped labels. Returns
-        int32 labels of the cropped shape, or ``None`` when the flood did
-        not converge (the caller then runs the exact host flood)."""
-        from ..ops.flood_kernel import affinity_flood
-
+        """The approximate device floods: upload the filtered mask (packed
+        bits) and the seeds, flood over the device-resident padded
+        affinities — the CUDA kernel (``"pallas"``) or the torch claim
+        recurrence (``"xla"``, ``ops/device_flood.wavefront_flood``) — and
+        download cropped labels. With ``flood_telemetry`` the certificate
+        runs beside it (``_telemetry``). Returns int32 labels of the
+        cropped shape, or ``None`` when the flood did not converge (the
+        caller then runs the exact host flood)."""
         global _flood_fallbacks
         t0 = time.perf_counter()
-        dev = aff_pad.device
         pshape = mask_pad.shape
         n = len(centroids)
-        bits = np.packbits(mask_pad.view(np.bool_).ravel())
-        mask_dev, seeds_dev = _flood_prep(
-            torch.from_numpy(bits).to(dev),
-            torch.from_numpy(np.ascontiguousarray(centroids,
-                                                  np.int64)).to(dev),
-            torch.arange(1, n + 1, dtype=torch.int32, device=dev), pshape)
+        mask_dev, seeds_dev = self._upload_mask_seeds(aff_pad, mask_pad,
+                                                      centroids, profile)
         t0 = _tick(profile, "upload_mask_seeds", t0)
-        lab_dev, n_steps, conv = affinity_flood(
-            aff_pad, seeds_dev, mask_dev,
-            max_launches=_FLOOD_MAX_LAUNCHES, inner_cap=1)
+        if self.device_flood == "pallas":
+            from ..ops.flood_kernel import affinity_flood
+
+            lab_dev, n_steps, conv = affinity_flood(
+                aff_pad, seeds_dev, mask_dev,
+                max_launches=_FLOOD_MAX_LAUNCHES, inner_cap=1)
+            key = "flood_launches"  # steps of the one persistent launch
+        else:
+            from ..ops.device_flood import wavefront_flood
+
+            lab_dev, n_steps, conv = wavefront_flood(
+                aff_pad, seeds_dev, mask_dev, mode="claim", max_iters=512)
+            key = "flood_iters"
         if profile is not None:
-            profile["flood_launches"] = n_steps  # steps of the one launch
+            profile[key] = n_steps
+        t0 = _tick(profile, "device_flood", t0)
+        if self.flood_telemetry and profile is not None:
+            _telemetry(aff_pad, seeds_dev, mask_dev, lab_dev, profile)
+            t0 = _tick(profile, "flood_telemetry", t0)
         if not conv:
             _flood_fallbacks += 1
             if profile is not None:
                 profile["flood_fallback"] = True
             return None
-        t0 = _tick(profile, "device_flood", t0)
-        labels = _host(_crop_cast(lab_dev, wide=n >= 2 ** 16)).astype(
-            np.int32)
+        wire = _crop_cast(lab_dev, wide=n >= 2 ** 16)
+        _moved(profile, "bytes_labels", wire)
+        labels = _host(wire).astype(np.int32)
         _tick(profile, "download_labels", t0)
-        if out is not None:
-            out[:] = 0
-            view = out.reshape(pshape)[1:-1, 1:-1, 1:-1]
-            view[:] = labels
-            return view
-        return labels
+        return _into(out, pshape, labels)
+
+    def _flood_exact(self, aff_pad, mask_pad, centroids, out=None,
+                     profile=None, pre_tie_frac=None, gather=None):
+        """``device_flood="exact"``: the verified exact flood
+        (``ops/flood_exact.verified_exact_flood``, behind the tie probe) on
+        the device, labels bit-equal to the host heap's. Returns cropped
+        int32 labels, or ``None`` for the exact host flood.
+
+        ``pre_tie_frac``: the early-dispatched probe's tie density (on the
+        pre-filter mask); past ``TIE_PROBE_DEFAULT`` the mode returns
+        ``None`` at once. ``gather``: the early-dispatched ``(pre_idx, m,
+        vals)``; with it the exact host flood runs on a worker thread
+        (``_Speculative``) while this thread runs the certificate, and its
+        labels are taken on every fallback."""
+        from ..ops.flood_exact import TIE_PROBE_DEFAULT, verified_exact_flood
+
+        if pre_tie_frac is not None and pre_tie_frac > TIE_PROBE_DEFAULT:
+            if profile is not None:
+                profile["flood_tie_frac"] = pre_tie_frac
+                # the early probe saw the pre-size-filter mask, a superset
+                profile["flood_tie_frac_scope"] = "prefilter"
+                profile["flood_exact_path"] = "fallback:tie-density"
+            return None
+        t0 = time.perf_counter()
+        pshape = mask_pad.shape
+        n = len(centroids)
+        mask_dev, seeds_dev = self._upload_mask_seeds(aff_pad, mask_pad,
+                                                      centroids, profile)
+        spec = None
+        if gather is not None:
+            pre_idx, m, vals = gather
+            spec = _Speculative(lambda prof: self._host_flood(
+                pre_idx, m, vals, mask_pad, centroids, out=None,
+                profile=prof))
+            spec.start()
+        tc = time.perf_counter()
+        try:
+            lab_dev, resolved, unc_count, n_mask, tie_frac = (
+                verified_exact_flood(aff_pad, seeds_dev, mask_dev,
+                                     tie_probe=TIE_PROBE_DEFAULT))
+        finally:
+            t_cert = time.perf_counter()
+            # the worker's labels are proven equal to resolved device labels
+            spec_labels, spec_prof = (spec.join() if spec is not None
+                                      else (None, {}))
+        path = _exact_path(profile, resolved, unc_count, n_mask, tie_frac)
+        if profile is not None:
+            profile["flood_certificate"] = t_cert - tc
+            if spec is not None:
+                profile["flood_spec_waited"] = time.perf_counter() - t_cert
+        if path.startswith("fallback"):
+            if spec is None:
+                return None
+            if profile is not None:
+                profile["flood_speculative"] = True
+                for k, v in spec_prof.items():
+                    profile[k] = profile.get(k, 0.0) + v
+            return _into(out, pshape, spec_labels)
+        if profile is not None:
+            profile["device_flood"] = profile.get("device_flood", 0.0) + (
+                t_cert - t0)
+        t0 = time.perf_counter()
+        wire = _crop_cast(lab_dev, wide=n >= 2 ** 16)
+        _moved(profile, "bytes_labels", wire)
+        labels = _host(wire).astype(np.int32)
+        _tick(profile, "download_labels", t0)
+        return _into(out, pshape, labels)
 
     def segment_stack(self, stack, output_labels, skip_labelled=True,
                       profile=None, devices=None):
@@ -507,10 +688,21 @@ class AffinityPipeline:
         overflow = n_cand > self.cand_capacity
         order_small = None if overflow else _HostCopy(order[:n_cand])
         mask_u8 = np.unpackbits(_host(mask_packed))[:nvox].reshape(zyx)
+        _moved(profile, "bytes_mask", mask_packed)
         mask_pad = np.pad(mask_u8, 1)
         t0 = _tick(profile, "download_mask_cands", t0)
-        if not self.device_flood:
-            pre_idx, m, vals = self._dispatch_gather(aff_pad, mask_pad)
+        exact = self.device_flood == "exact"
+        # exact mode: the tie probe on the device-resident outputs, read
+        # after the host filter work it hides under
+        if exact:
+            probe = _tie_probe(mask_packed.tensor if isinstance(
+                mask_packed, _HostCopy) else mask_packed, aff_pad)
+        if not self.device_flood or exact:
+            # the gather at the pre-filter mask downloads under the host's
+            # spacing and size filter (in exact mode it is the fallback's
+            # input, and the speculative host flood's)
+            pre_idx, m, vals = self._dispatch_gather(aff_pad, mask_pad,
+                                                     profile)
             t0 = _tick(profile, "gather_dispatch", t0)
         if overflow:
             from ..ops.peaks import peak_local_max
@@ -533,12 +725,22 @@ class AffinityPipeline:
         t0 = _tick(profile, "host_mask_filter", t0)
         if self.device_flood:
             if len(centroids):
-                labels = self._flood_on_device(aff_pad, mask_pad, centroids,
-                                               out=out, profile=profile)
+                if exact:
+                    labels = self._flood_exact(
+                        aff_pad, mask_pad, centroids, out=out,
+                        profile=profile, pre_tie_frac=float(probe),
+                        gather=((pre_idx, m, vals) if self.speculative_flood
+                                else None))
+                else:
+                    labels = self._flood_on_device(
+                        aff_pad, mask_pad, centroids, out=out,
+                        profile=profile)
                 if labels is not None:
                     return labels
-            pre_idx, m, vals = self._dispatch_gather(aff_pad, mask_pad)
-            t0 = _tick(profile, "gather_dispatch", t0)
+            if not exact:
+                pre_idx, m, vals = self._dispatch_gather(aff_pad, mask_pad,
+                                                         profile)
+                t0 = _tick(profile, "gather_dispatch", t0)
         return self._host_flood(pre_idx, m, vals, mask_pad, centroids,
                                 out=out, profile=profile)
 
@@ -547,7 +749,9 @@ class AffinityPipeline:
         """The exact host-heap half: take the masked affinity gather,
         scatter it into the reused host buffer, seed the markers and run the
         C++ priority flood (pure-python oracle fallback). Returns cropped
-        int32 labels."""
+        int32 labels. Also the speculative body of ``_flood_exact``, then
+        with ``out=None`` (the caller copies into ``out`` after the
+        join)."""
         t0 = time.perf_counter()
         vals = _host(vals)[:, :m]
         t0 = _tick(profile, "gather_affinities", t0)
@@ -598,11 +802,10 @@ class DoGPipeline:
     the host flood orders by it, which is the order of scipy's f64 EDT."""
 
     @staticmethod
-    def normalize_device_flood(value):
-        """Canonical ``device_flood`` setting: ``False`` (the exact host
-        bucket flood) or ``"pallas"`` (the approximate flood in the CUDA
-        image kernel, at every frame width)."""
-        return _normalize_device_flood(value)
+    def normalize_device_flood(value, device=None):
+        """Canonical ``device_flood`` setting (``_normalize_device_flood``):
+        ``"pallas"`` is the CUDA image kernel, at every frame width."""
+        return _normalize_device_flood(value, device)
 
     def __init__(self, min_sigma=1, max_sigma=1.5, threshold=0.02,
                  sigma_ratio=1.6, cand_capacity: int = _CAND_CAP,
@@ -612,8 +815,9 @@ class DoGPipeline:
         self.threshold = float(threshold)
         self.sigma_ratio = float(sigma_ratio)
         self.cand_capacity = cand_capacity
-        self.device_flood = self.normalize_device_flood(device_flood)
         self.device = resolve_device(device)
+        self.device_flood = self.normalize_device_flood(device_flood,
+                                                        self.device)
         k = int(np.log(self.max_sigma / self.min_sigma)
                 / np.log(self.sigma_ratio) + 1)
         self.sigma_list = np.array(
@@ -707,46 +911,100 @@ class DoGPipeline:
         yield from _drive_stack(stack, output_labels, skip_labelled,
                                 devices, dispatch_one, finalize_one)
 
-    def _flood_on_device(self, mask_packed, dist_sq, markers, profile=None):
-        """The ``device_flood="pallas"`` flood: upload the seeds, run the
-        CUDA image kernel on ``-sqrt(d²)`` over the device-resident mask
-        bits and squared EDT, download labels of the padded frame in the
-        wire dtype. Returns int32 labels, or ``None`` when the flood did not
-        converge (the caller then runs the exact host flood)."""
-        from ..ops.image_flood_kernel import image_flood
-
-        global _flood_fallbacks
-        t0 = time.perf_counter()
+    @staticmethod
+    def _mask_seeds(mask_packed, dist_sq, markers, profile=None):
+        """The flood's mask from the device-resident bits and the seeds
+        (``markers``' labels at their voxels), on the device of
+        ``dist_sq``."""
         dev = dist_sq.device
-        pshape = tuple(dist_sq.shape)
         coords = np.argwhere(markers > 0)
         labs = markers[tuple(coords.T)].astype(np.int32)
+        _moved(profile, "bytes_mask_seeds", coords)
+        _moved(profile, "bytes_mask_seeds", labs)
         bits = (mask_packed if isinstance(mask_packed, torch.Tensor)
                 else torch.from_numpy(_host(mask_packed)))
-        mask_dev, seeds_dev = _flood_prep(
-            bits.to(dev), torch.from_numpy(coords).to(dev),
-            torch.from_numpy(labs).to(dev), pshape)
+        return _flood_prep(bits.to(dev), torch.from_numpy(coords).to(dev),
+                           torch.from_numpy(labs).to(dev),
+                           tuple(dist_sq.shape))
+
+    def _flood_on_device(self, mask_packed, dist_sq, markers, profile=None):
+        """The approximate device floods on ``-sqrt(d²)``: upload the seeds,
+        flood over the device-resident mask bits and squared EDT — the CUDA
+        image kernel (``"pallas"``) or the torch hop-tie recurrence
+        (``"xla"``, ``ops/device_flood.wavefront_image_flood_core``) — and
+        download labels of the padded frame in the wire dtype. Returns int32
+        labels, or ``None`` when the flood did not converge (the caller then
+        runs the exact host flood)."""
+        global _flood_fallbacks
+        t0 = time.perf_counter()
+        mask_dev, seeds_dev = self._mask_seeds(mask_packed, dist_sq, markers,
+                                               profile)
         # f32 sqrt is correctly rounded, like the host's f64 sqrt cast to
         # f32, so these are the host path's priorities
         values = -torch.sqrt(dist_sq)
         t0 = _tick(profile, "upload_mask_seeds", t0)
-        lab_dev, n_steps, conv = image_flood(
-            values, seeds_dev, mask_dev, max_launches=_FLOOD_MAX_LAUNCHES,
-            inner_cap=1)
+        if self.device_flood == "pallas":
+            from ..ops.image_flood_kernel import image_flood
+
+            lab_dev, n_steps, conv = image_flood(
+                values, seeds_dev, mask_dev,
+                max_launches=_FLOOD_MAX_LAUNCHES, inner_cap=1)
+            key = "flood_launches"  # steps of the one persistent launch
+        else:
+            from ..ops.device_flood import wavefront_image_flood_core
+
+            lab_dev, n_steps, conv = wavefront_image_flood_core(
+                values, seeds_dev, mask_dev, mode="claim", max_iters=512)
+            key = "flood_iters"
         if profile is not None:
-            profile["flood_launches"] = n_steps  # steps of the one launch
+            profile[key] = n_steps
+        t0 = _tick(profile, "device_flood", t0)
         if not conv:
             _flood_fallbacks += 1
             if profile is not None:
                 profile["flood_fallback"] = True
-            _tick(profile, "device_flood", t0)
             return None
-        t0 = _tick(profile, "device_flood", t0)
+        return self._download(lab_dev, markers, profile, t0)
+
+    @staticmethod
+    def _download(lab_dev, markers, profile, t0):
         wide = int(markers.max(initial=0)) >= 2 ** 16
         wire = lab_dev.to(torch.int32 if wide else torch.uint16)
+        _moved(profile, "bytes_labels", wire)
         labels = _host(wire).astype(np.int32)
         _tick(profile, "download_labels", t0)
         return labels
+
+    def _flood_exact(self, mask_packed, dist_sq, markers, profile=None):
+        """``device_flood="exact"``: the verified exact image flood
+        (``ops/flood_exact.verified_exact_image_flood``, behind the tie
+        probe) on ``-d²``, not ``-sqrt(d²)``: a strictly monotone transform
+        keeps every comparison and every exact tie, and ``-d²`` is an exact
+        f32 integer. It orders as the host flood's ``-sqrt`` priorities do
+        below ``native.BUCKET_FLOOD_MAX_KEY``, which the returned
+        ``max_key`` is checked against. Returns int32 labels of the padded
+        frame, bit-equal to the default host flood's, or ``None`` for the
+        host flood."""
+        from ..ops.flood_exact import (TIE_PROBE_DEFAULT,
+                                       verified_exact_image_flood)
+
+        t0 = time.perf_counter()
+        mask_dev, seeds_dev = self._mask_seeds(mask_packed, dist_sq, markers,
+                                               profile)
+        tc = time.perf_counter()
+        lab_dev, resolved, unc_count, n_mask, tie_frac = (
+            verified_exact_image_flood(-dist_sq, seeds_dev, mask_dev,
+                                       tie_probe=TIE_PROBE_DEFAULT))
+        max_key = int(torch.where(mask_dev, dist_sq, 0).max().to(
+            torch.int32))
+        path = _exact_path(profile, resolved, unc_count, n_mask, tie_frac,
+                           max_key=max_key)
+        if profile is not None:
+            profile["flood_certificate"] = time.perf_counter() - tc
+        if path.startswith("fallback"):
+            return None
+        t0 = _tick(profile, "device_flood", t0)
+        return self._download(lab_dev, markers, profile, t0)
 
     def _finalize(self, zyx, outs, out=None, profile=None):
         """Host half: blob pruning, seed labelling and the seeded flood on
@@ -779,6 +1037,7 @@ class DoGPipeline:
         if not self.device_flood:
             mask = np.unpackbits(_host(mask_packed))[:nvox].view(
                 np.bool_).reshape(pshape)
+            _moved(profile, "bytes_mask", mask_packed)
         t0 = _tick(profile, "download", t0)
 
         def dispatch_gather(mask):
@@ -786,7 +1045,10 @@ class DoGPipeline:
             voxels only); its copy runs under the host blob pruning."""
             dev_idx = np.flatnonzero(mask.ravel())
             idx = torch.from_numpy(dev_idx).to(dist_sq.device)
-            return len(dev_idx), _HostCopy(dist_sq.reshape(-1)[idx])
+            vals = _HostCopy(dist_sq.reshape(-1)[idx])
+            _moved(profile, "bytes_gather", idx)
+            _moved(profile, "bytes_gather", vals)
+            return len(dev_idx), vals
 
         if mask is not None:
             m, vals = dispatch_gather(mask)
@@ -804,8 +1066,9 @@ class DoGPipeline:
         t0 = _tick(profile, "host_blobs", t0)
 
         if self.device_flood:
-            labels = self._flood_on_device(mask_packed, dist_sq, markers,
-                                           profile=profile)
+            flood = (self._flood_exact if self.device_flood == "exact"
+                     else self._flood_on_device)
+            labels = flood(mask_packed, dist_sq, markers, profile=profile)
             if labels is not None:
                 if out is not None:
                     out[...] = labels
@@ -814,6 +1077,7 @@ class DoGPipeline:
             t0 = time.perf_counter()
             mask = np.unpackbits(_host(mask_packed))[:nvox].view(
                 np.bool_).reshape(pshape)
+            _moved(profile, "bytes_mask", mask_packed)
             m, vals = dispatch_gather(mask)
         labels = self._host_flood(mask, markers, m, vals, profile=profile)
         if out is not None:
@@ -866,6 +1130,76 @@ class DoGPipeline:
             output = np.pad(labels_p, 1).astype(np.int32).ravel()
         _tick(profile, "flood", t0)
         return output.reshape(wshape)[1:-1, 1:-1, 1:-1]
+
+
+def _into(out, pshape, labels):
+    """``labels`` (the cropped frame) written into the padded flat ``out``
+    with a zero ring, returning the view; ``labels`` itself without
+    ``out``."""
+    if out is None:
+        return labels
+    out[:] = 0
+    view = out.reshape(pshape)[1:-1, 1:-1, 1:-1]
+    view[:] = labels
+    return view
+
+
+def _telemetry(aff_pad, seeds, mask, lab_flood, profile):
+    """The approximate floods' fidelity bound (JAX
+    ``_cached_flood_telemetry``): the heap equals the certificate's ``rep``
+    on certain voxels, so the flood can differ from the heap only on
+    uncertain voxels or where it differs from ``rep`` on certain ones."""
+    from ..ops.flood_exact import certificate_flood_core
+
+    rep, unc, _lb, _ub, conv = certificate_flood_core(aff_pad, seeds, mask)
+    certain = mask & ~unc
+    unc_n = int(unc.sum())
+    mism_n = int((certain & (lab_flood.to(torch.int32) != rep)).sum())
+    mask_n = int(mask.sum())
+    profile["flood_uncertain_frac"] = unc_n / mask_n if mask_n else 0.0
+    profile["flood_mismatch_certain_frac"] = (
+        mism_n / mask_n if mask_n else 0.0)
+    profile["flood_disagreement_bound"] = (
+        (unc_n + mism_n) / mask_n if mask_n else 0.0)
+    profile["flood_mask_voxels"] = mask_n
+    profile["flood_certificate_converged"] = bool(conv)
+
+
+def _exact_path(profile, resolved, unc_count, n_mask, tie_frac,
+                max_key=None):
+    """The verified flood's path (JAX ``_flood_exact``'s decode), recorded
+    in ``profile`` with ``flood_tie_frac``, its scope and
+    ``flood_uncertain_frac``. ``max_key`` (DoG): past
+    ``native.BUCKET_FLOOD_MAX_KEY`` distinct d² can collide in the f32
+    ``-sqrt`` priorities of the host flood, so ``-d²`` no longer provably
+    orders as they do."""
+    if unc_count < 0:
+        path = "fallback:tie-density"
+    elif max_key is not None and max_key >= native.BUCKET_FLOOD_MAX_KEY:
+        path = "fallback:sqrt-collision"
+    elif not resolved:
+        path = "fallback:unresolved"
+    else:
+        path = "certified" if unc_count == 0 else "repaired"
+    if profile is not None:
+        profile["flood_tie_frac"] = float(tie_frac)
+        profile["flood_tie_frac_scope"] = "filtered"
+        if unc_count >= 0:
+            profile["flood_uncertain_frac"] = (
+                unc_count / n_mask if n_mask else 0.0)
+        profile["flood_exact_path"] = path
+    return path
+
+
+def _moved(profile, key, x):
+    """Add the bytes of ``x`` (a tensor, a ``_HostCopy`` or an array), a
+    transfer between host and device, to ``profile[key]``."""
+    if profile is not None:
+        if isinstance(x, _HostCopy):
+            x = x.tensor
+        n = (x.numel() * x.element_size() if isinstance(x, torch.Tensor)
+             else x.nbytes)
+        profile[key] = profile.get(key, 0) + n
 
 
 def _tick(profile, name, t0):

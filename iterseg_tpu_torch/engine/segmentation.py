@@ -125,10 +125,14 @@ def affinity_watershed_prep_config(input_volume_layer, unet_or_config_file,
     ``unet_or_config_file``: a ``.npz``/``.pt`` checkpoint, a JSON config
     (``unet`` — a path, ``"labels layer"`` for the reference layer's
     ``metadata["unet"]``, or ``"default"`` — plus optional
-    ``affinities_extent``, ``compute_dtype``, ``device_flood``), or ``None``
-    for the bundled default checkpoint. ``compute_dtype="bfloat16"`` runs the
-    forward in bf16; ``device_flood="pallas"`` floods on the GPU with the
-    CUDA kernel (approximate; the default is the exact host flood)."""
+    ``affinities_extent``, ``compute_dtype``, ``device_flood``,
+    ``flood_telemetry``), or ``None`` for the bundled default checkpoint.
+    ``compute_dtype="bfloat16"`` runs the forward in bf16. ``device_flood``
+    (``device_pipeline._normalize_device_flood``): ``"pallas"`` floods on
+    the GPU with the CUDA kernel and ``"xla"`` with the torch recurrence
+    (both approximate), ``"exact"`` runs the verified flood (labels
+    bit-equal to the default exact host flood), ``True`` picks by the
+    measured link rate."""
     unet = None
     affinities_extent = 1
     if isinstance(unet_or_config_file, pathlib.PurePath):
@@ -183,7 +187,8 @@ def _pipeline(cache, unet, chunk_size, margin, device_flood,
               flood_telemetry=False, device_normalize=False, device=None):
     from .device_pipeline import AffinityPipeline
 
-    device_flood = AffinityPipeline.normalize_device_flood(device_flood)
+    device_flood = AffinityPipeline.normalize_device_flood(device_flood,
+                                                           device)
     key = (tuple(chunk_size), tuple(margin), device_flood,
            bool(flood_telemetry), bool(device_normalize), str(device))
     if key not in cache:
@@ -274,9 +279,13 @@ def affinity_unet_watershed(
 
     The JAX package's signature. Keyword-only: ``devices`` — a list of one
     ``torch.device`` (``None``: CUDA); ``compute_dtype`` — e.g.
-    ``"bfloat16"``; ``device_flood`` — ``"pallas"`` floods on the GPU with
-    the CUDA kernel (approximate), ``False`` (default) runs the exact host
-    flood; ``flood_telemetry`` — not available yet (raises); ``threaded`` —
+    ``"bfloat16"``; ``device_flood`` — ``"pallas"`` (the CUDA kernel) or
+    ``"xla"`` (the torch recurrence) floods on the device, approximately,
+    ``"exact"`` runs the verified flood (bit-equal labels), ``True`` picks
+    by the measured link rate, ``False`` (default) runs the exact host
+    flood; ``flood_telemetry`` — a rigorous per-run disagreement bound of
+    the approximate floods in the profile, on volumes and stacks (JAX
+    drops it on a stack); ``threaded`` —
     return a live :class:`SegmentationWorker` (ignored under ``debug``).
     """
     prep = affinity_watershed_prep_config
@@ -322,8 +331,9 @@ def dog_blob_watershed_prep_config(
     """The DoG parameters from a JSON config (``max_sigma``, ``min_sigma``,
     ``threshold``, ``device_flood``) or the defaults; explicit falsy values
     (e.g. threshold 0) are honoured, only a missing or null key falls back.
-    ``device_flood="pallas"`` floods on the GPU with the CUDA image kernel
-    (approximate; the default is the exact host flood)."""
+    ``device_flood``: ``"pallas"`` (the CUDA image kernel) or ``"xla"``
+    floods on the device, approximately; ``"exact"`` runs the verified
+    image flood (bit-equal labels); the default is the exact host flood."""
     if unet_or_config_file is not None:
         config = read_config_json(str(unet_or_config_file))
         max_sigma = _config_or(config, "max_sigma", max_sigma)
@@ -344,7 +354,7 @@ def _dog_pipeline(cache, min_sigma, max_sigma, threshold, device_flood,
                   device):
     from .device_pipeline import DoGPipeline
 
-    device_flood = DoGPipeline.normalize_device_flood(device_flood)
+    device_flood = DoGPipeline.normalize_device_flood(device_flood, device)
     key = ("dog", float(min_sigma), float(max_sigma), float(threshold),
            device_flood, str(device))
     if key not in cache:
@@ -427,8 +437,10 @@ def dog_blob_watershed(
     """Classical DoG blob segmentation (no network) of a 3D volume or 4D
     stack. The JAX package's signature. Keyword-only: ``devices`` — a list
     of one ``torch.device`` (``None``: CUDA); ``device_flood`` — ``"pallas"``
-    floods on the GPU with the CUDA image kernel (approximate, exact host
-    fallback on non-convergence), ``False`` (default) runs the exact host
+    (the CUDA image kernel) or ``"xla"`` floods on the device
+    (approximate, exact host fallback on non-convergence), ``"exact"`` runs
+    the verified image flood (bit-equal labels), ``True`` picks by the
+    measured link rate, ``False`` (default) runs the exact host
     flood; ``flood_telemetry`` — accepted and ignored, as in JAX;
     ``threaded`` — return a live :class:`SegmentationWorker`."""
     del flood_telemetry

@@ -10,8 +10,9 @@ the cuDNN set-up and the kernel builds:
   DoG twin) and reuses the engine's ``pipeline_cache`` across volumes.
   Labels are bit-identical to one-shot ``segment_data`` runs: the exact
   same processing functions and stores are used, only the config's
-  lifetime changes. A JSON config with ``"device_flood": "pallas"`` sends
-  the floods to the CUDA kernels.
+  lifetime changes. A JSON config's ``"device_flood"`` (``"pallas"``: the
+  CUDA kernels; ``"xla"``, ``"exact"``, ``true``) and ``"flood_telemetry"``
+  reach the pipelines as the keywords do.
 - ``watch``: a filesystem watch loop — new ``*.zarr``/``*.zar`` stores or
   ``*.tif(f)`` files appearing in a directory are segmented into
   ``<output_dir>/<stem>.ome.zarr``; a ``<stem>.done`` marker records

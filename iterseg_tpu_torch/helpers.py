@@ -12,6 +12,10 @@ writers so that training and evaluation need neither pandas nor PIL:
   empty field) and the column types ``pandas.read_csv`` would infer;
 - ``write_tiff`` / ``read_tiff``: uncompressed, baseline, multi-page
   float32 TIFFs, one strip a page, readable by PIL as mode ``F``.
+
+``_read_any`` reads TIFFs through PIL when it is installed, as JAX does, and
+otherwise through ``read_baseline_tiff`` (uncompressed baseline TIFFs of
+8/16/32-bit integers or 32-bit floats, either byte order, any strips).
 """
 from __future__ import annotations
 
@@ -43,6 +47,7 @@ __all__ = [
     "read_csv",
     "write_tiff",
     "read_tiff",
+    "read_baseline_tiff",
 ]
 
 
@@ -80,25 +85,98 @@ def log_dir_or_None(log, out_dir):
 
 
 def _read_any(path):
-    """A zarr store, or a TIFF through PIL (imported here, so that only a
-    TIFF read needs it: the machine with the card has no PIL)."""
+    """A zarr store, or a TIFF: through PIL when it can be imported, as the
+    JAX package reads it, else through ``read_baseline_tiff``."""
     path = str(path)
     if path.endswith((".zarr", ".zar")):
         from .io.zarr_io import zarr_open
 
         return np.asarray(zarr_open(path))
-    from PIL import Image
-
-    im = Image.open(path)
-    frames = []
     try:
-        while True:
-            frames.append(np.array(im))
-            im.seek(im.tell() + 1)
-    except EOFError:
-        pass
+        from PIL import Image
+    except ImportError:
+        frames = read_baseline_tiff(path)
+    else:
+        im = Image.open(path)
+        frames = []
+        try:
+            while True:
+                frames.append(np.array(im))
+                im.seek(im.tell() + 1)
+        except EOFError:
+            pass
     arr = np.stack(frames) if len(frames) > 1 else frames[0]
     return np.squeeze(arr)
+
+
+_TIFF_TYPES = {1: "B", 3: "H", 4: "I"}  # BYTE, SHORT, LONG
+_TIFF_SAMPLE = {(1, 8): "u1", (1, 16): "u2", (1, 32): "u4", (2, 8): "i1",
+                (2, 16): "i2", (2, 32): "i4", (3, 32): "f4"}
+_TIFF_COMPRESSION = {2: "CCITT RLE", 3: "CCITT G3", 4: "CCITT G4", 5: "LZW",
+                     6: "old JPEG", 7: "JPEG", 8: "Deflate", 32773: "PackBits",
+                     32946: "Deflate", 50000: "ZSTD"}
+
+
+def read_baseline_tiff(path):
+    """The pages of an uncompressed baseline grayscale TIFF as a list of
+    (y, x) numpy arrays in native byte order: little- or big-endian, one or
+    many strips a page, 8/16/32-bit unsigned or signed integers and 32-bit
+    floats. Raises ``ValueError`` for compressed or tiled files and other
+    layouts."""
+    with open(path, "rb") as f:
+        buf = f.read()
+    order = {b"II": "<", b"MM": ">"}.get(buf[:2])
+    if order is None or struct.unpack_from(order + "H", buf, 2)[0] != 42:
+        raise ValueError(f"{path}: not a TIFF (or a BigTIFF)")
+    (off,) = struct.unpack_from(order + "I", buf, 4)
+    pages = []
+    while off:
+        (n,) = struct.unpack_from(order + "H", buf, off)
+        tags = {}
+        for k in range(n):
+            tag, typ, count = struct.unpack_from(order + "HHI", buf,
+                                                 off + 2 + 12 * k)
+            if typ not in _TIFF_TYPES:
+                continue
+            fmt = _TIFF_TYPES[typ]
+            size = struct.calcsize(fmt) * count
+            at = off + 10 + 12 * k
+            if size > 4:
+                (at,) = struct.unpack_from(order + "I", buf, at)
+            tags[tag] = struct.unpack_from(f"{order}{count}{fmt}", buf, at)
+        pages.append(_tiff_page(buf, order, tags, path))
+        (off,) = struct.unpack_from(order + "I", buf, off + 2 + 12 * n)
+    return pages
+
+
+def _tiff_page(buf, order, tags, path):
+    comp = tags.get(259, (1,))[0]
+    if comp != 1:
+        name = _TIFF_COMPRESSION.get(comp, "unknown")
+        raise ValueError(f"{path}: compressed TIFF (compression tag 259 = "
+                         f"{comp}, {name}); only uncompressed files are "
+                         "read without PIL")
+    if 322 in tags or 324 in tags:
+        raise ValueError(f"{path}: tiled TIFF; only strips are read")
+    if tags.get(277, (1,))[0] != 1:
+        raise ValueError(f"{path}: several samples a pixel")
+    bits, fmt = set(tags.get(258, (1,))), set(tags.get(339, (1,)))
+    key = (min(fmt), min(bits))
+    if len(bits) != 1 or len(fmt) != 1 or key not in _TIFF_SAMPLE:
+        raise ValueError(f"{path}: unsupported sample layout "
+                         f"(bits {tags.get(258)}, format {tags.get(339)})")
+    h, w = tags[257][0], tags[256][0]
+    dtype = np.dtype(order + _TIFF_SAMPLE[key])
+    need = h * w * dtype.itemsize
+    counts = tags.get(279)
+    if counts is None:  # one strip without a byte count
+        counts = (need,)
+    data = b"".join(bytes(buf[o:o + c]) for o, c in zip(tags[273], counts))
+    if len(data) < need:
+        raise ValueError(f"{path}: strips hold {len(data)} bytes, the page "
+                         f"needs {need}")
+    page = np.frombuffer(data, dtype, h * w).reshape(h, w)
+    return page.astype(dtype.newbyteorder("="))
 
 
 def get_ids(paths, regex=r"\d{6}_\d{6}_\d{1,3}"):

@@ -1,10 +1,14 @@
-"""The claim-mode wavefront floods in plain torch — the readable spec of the
-flood rules that the CUDA kernels run (``ops/flood_kernel.py`` for the
-affinity flood, ``ops/image_flood_kernel.py`` for the image flood).
+"""The wavefront floods in plain torch: the ``device_flood="xla"`` floods of
+both pipelines, and the readable spec of the flood rules that the CUDA
+kernels run (``ops/flood_kernel.py`` for the affinity flood,
+``ops/image_flood_kernel.py`` for the image flood).
 
-The port of ``iterseg_tpu/ops/device_flood.py``'s ``mode="claim"``
-recurrences, approximations of the sequential heap flood (claim-at-push,
-reference ``watershed.py:95-159``).
+The port of ``iterseg_tpu/ops/device_flood.py``: approximations of the
+sequential heap flood (claim-at-push, reference ``watershed.py:95-159``),
+in two modes. ``mode="minimax"`` is the classic monotone recurrence
+``d(u) = min over v of max(d(v), w(u, v))``, the neighbours visited in
+JAX's footprint order (z-, y-, x-, x+, y+, z+), the first of equal
+candidates kept. ``mode="claim"`` is the claim recurrence below.
 
 **Affinity flood** (``hop_ties=False``):
 
@@ -37,8 +41,13 @@ the recurrence with ``hop_ties=True``). Three differences:
 
 Every step updates every voxel at once (Jacobi), so the recurrences are
 deterministic; the per-voxel key only decreases over a finite set, so they
-terminate. Their fixed points equal JAX ``wavefront_flood_jit(mode=
-"claim")`` and ``wavefront_image_flood_jit(mode="claim")`` bit for bit.
+terminate. Two loops drive them. ``wavefront_flood`` and
+``wavefront_image_flood_core`` run JAX's (``run_checked``: groups of
+``check_every`` steps, one host read a group, one extra step deciding
+convergence) and return JAX's labels, ``n_iters`` and ``converged`` bit
+for bit. ``claim_until_quiet`` and ``image_claim_until_quiet`` stop at the
+first step that claims nothing, as the CUDA kernels do, and are their plain
+versions at ``inner_cap=1``.
 
 The state lives on padded arrays (one voxel of ring: ``d = inf``,
 ``lab = 0``, ``h = 0``), so a step reads its neighbours as slices; the
@@ -52,7 +61,8 @@ import torch
 
 __all__ = ["init_state", "edge_weights", "wavefront_flood",
            "wavefront_affinity_flood", "wavefront_image_flood_core",
-           "wavefront_image_flood"]
+           "wavefront_image_flood", "run_checked", "run_until_quiet",
+           "claim_until_quiet", "image_claim_until_quiet"]
 
 _INF = float("inf")
 
@@ -186,92 +196,189 @@ def image_init_state(values, seeds, mask):
     return d, lab, torch.zeros_like(lab), ckd, torch.zeros_like(cki), cki, code
 
 
-def wavefront_image_flood_core(values: torch.Tensor, seeds: torch.Tensor,
-                               mask: torch.Tensor, max_iters: int = 512):
-    """The synchronous hop-tie image recurrence on the tensors' device.
+# JAX's footprint order (z-, y-, x-, x+, y+, z+) as indices into ``_NBR``:
+# the minimax update keeps the first of several equal candidates, so its
+# labels depend on the order in which the neighbours are visited
+_FOOTPRINT = (0, 2, 4, 5, 3, 1)
 
-    ``values`` (Z, Y, X) float, ``seeds`` (Z, Y, X) int (0 = unseeded),
-    ``mask`` (Z, Y, X) bool. Returns ``(labels int32, n_iters,
-    converged)``: ``n_iters`` counts the steps up to and including the
-    first step that claims nothing (``converged``), or ``max_iters``."""
-    values = values.to(torch.float32)
-    d, lab, h, ckd, ckh, cki, code = image_init_state(values, seeds, mask)
-    idx, offs = neighbour_index(mask.shape, values.device)
+
+def _steps(weights, seeds, mask, mode, seed_values=None, hop_ties=False):
+    """``(step, state0)`` of one recurrence: ``step(state)`` returns the
+    next state (fresh tensors; ``state`` is left as it was) and a device
+    bool, whether the step changed anything. ``state[1]`` holds the padded
+    labels. ``weights``: the six entry weights in ``_NBR`` order, or the one
+    tensor of node values when ``hop_ties``."""
+    idx, offs = neighbour_index(mask.shape, mask.device)
+    if mode == "minimax":
+        d0, lab0, _, _, code = init_state(seeds, mask, seed_values)
+        frozen = code != 1
+        if hop_ties:
+            weights = [weights] * 6
+
+        def step(state):
+            d_pad, lab_pad = state
+            best_d, best_lab = d_pad[_INTERIOR], lab_pad[_INTERIOR]
+            d, lab = best_d, best_lab
+            for k in _FOOTPRINT:
+                cand = torch.maximum(d_pad[_NBR[k]], weights[k])
+                take = cand < best_d
+                best_d = torch.where(take, cand, best_d)
+                best_lab = torch.where(take, lab_pad[_NBR[k]], best_lab)
+            d_new = torch.where(frozen, d0, best_d)
+            lab_new = torch.where(frozen, lab0, best_lab)
+            changed = ((lab_new != lab) | (d_new != d)).any()
+            return (pad_ring(d_new, _INF), pad_ring(lab_new, 0)), changed
+
+        return step, (pad_ring(d0, _INF), pad_ring(lab0, 0))
+    if mode != "claim":
+        raise ValueError(f"mode must be 'claim' or 'minimax', got {mode!r}")
+    if not hop_ties:
+        d, lab, ckd, cki, code = init_state(seeds, mask, seed_values)
+        free = code == 1
+
+        def step(state):
+            d, lab, ckd, cki, claim = _claim_step(*state, weights, idx, offs,
+                                                  free)
+            return (pad_ring(d, _INF), pad_ring(lab, 0), ckd,
+                    cki), claim.any()
+
+        return step, (pad_ring(d, _INF), pad_ring(lab, 0), ckd, cki)
+    d, lab, h, ckd, ckh, cki, code = image_init_state(weights, seeds, mask)
     free = code == 1
-    d_pad, lab_pad, h_pad = pad_ring(d, _INF), pad_ring(lab, 0), pad_ring(h, 0)
-    for it in range(1, max_iters + 1):
+
+    def step(state):
         d, lab, h, ckd, ckh, cki, claim = _image_claim_step(
-            d_pad, lab_pad, h_pad, ckd, ckh, cki, values, idx, offs, free)
-        if not bool(claim.any()):
-            return lab, it, True
-        d_pad[_INTERIOR] = d
-        lab_pad[_INTERIOR] = lab
-        h_pad[_INTERIOR] = h
-    return lab_pad[_INTERIOR].clone(), max_iters, False
+            *state, weights, idx, offs, free)
+        return (pad_ring(d, _INF), pad_ring(lab, 0), pad_ring(h, 0), ckd, ckh,
+                cki), claim.any()
+
+    return step, (pad_ring(d, _INF), pad_ring(lab, 0), pad_ring(h, 0), ckd,
+                  ckh, cki)
+
+
+def run_checked(step, state, max_iters, check_every):
+    """JAX's ``lax.while_loop`` over a recurrence, with one host read a
+    group: while the last step changed something and fewer than
+    ``max_iters`` steps ran, run ``check_every`` more steps (the count can
+    pass ``max_iters`` when it is not a multiple of ``check_every``); then
+    one extra step, whose result is dropped, decides convergence. Returns
+    ``(state, n_steps, converged)``."""
+    it, changed = 0, True
+    while changed and it < max_iters:
+        for _ in range(check_every):
+            state, flag = step(state)
+        it += check_every
+        changed = bool(flag)
+    _, flag = step(state)
+    return state, it, not bool(flag)
+
+
+def run_until_quiet(step, state, max_steps):
+    """The CUDA kernels' stopping rule: steps until the first that changes
+    nothing. Returns ``(state, n_steps, converged)``: ``n_steps`` counts
+    that quiet step, or is ``max_steps`` when every step changed
+    something."""
+    for it in range(1, max_steps + 1):
+        new, flag = step(state)
+        if not bool(flag):
+            return new, it, True
+        state = new
+    return state, max_steps, False
+
+
+def _seed_image(shape, marker_coords_or_seeds):
+    """A full int32 seed image, or labels 1..n at (n, ndim) coordinates."""
+    seeds = np.asarray(marker_coords_or_seeds)
+    if seeds.shape == tuple(shape):
+        return seeds.astype(np.int32)
+    out = np.zeros(shape, np.int32)
+    if len(seeds):
+        out[tuple(seeds.T)] = np.arange(1, len(seeds) + 1, dtype=np.int32)
+    return out
+
+
+def _tensors(dev, *arrays):
+    return [torch.as_tensor(np.ascontiguousarray(a), device=dev)
+            for a in arrays]
+
+
+def wavefront_image_flood_core(values: torch.Tensor, seeds: torch.Tensor,
+                               mask: torch.Tensor, mode="claim",
+                               max_iters: int = 512, check_every: int = 8):
+    """The image flood on the tensors' device (JAX
+    ``wavefront_image_flood_jit``): ``mode="claim"`` is the hop-tie claim
+    recurrence, ``"minimax"`` the monotone one. ``values`` (Z, Y, X) float,
+    ``seeds`` (Z, Y, X) int (0 = unseeded), ``mask`` (Z, Y, X) bool.
+    Returns ``(labels int32, n_iters, converged)`` with JAX's loop
+    (``run_checked``)."""
+    step, state = _steps(values.to(torch.float32), seeds, mask, mode,
+                         seed_values=values.to(torch.float32), hop_ties=True)
+    state, it, conv = run_checked(step, state, max_iters, check_every)
+    return state[1][_INTERIOR], it, conv
 
 
 def wavefront_image_flood(values, marker_coords_or_seeds, mask,
-                          max_iters=512, device=None):
+                          mode="claim", max_iters=512, check_every=8,
+                          device=None):
     """NumPy-facing image flood. ``marker_coords_or_seeds``: an (n, ndim)
     coordinate array (labels 1..n in row order) or a full int32 seed image.
     Returns ``(labels int32, n_iters, converged)``."""
     from ..device import resolve_device
 
-    dev = resolve_device(device)
     mask = np.asarray(mask).astype(bool)
-    seeds = np.asarray(marker_coords_or_seeds)
-    if seeds.shape != mask.shape:  # (n, ndim) coordinates
-        coords = seeds
-        seeds = np.zeros(mask.shape, np.int32)
-        if len(coords):
-            seeds[tuple(coords.T)] = np.arange(1, len(coords) + 1,
-                                               dtype=np.int32)
-    lab, it, conv = wavefront_image_flood_core(
-        torch.as_tensor(np.asarray(values, np.float32), device=dev),
-        torch.as_tensor(seeds.astype(np.int32), device=dev),
-        torch.as_tensor(mask, device=dev), max_iters=max_iters)
+    v, s, m = _tensors(resolve_device(device),
+                       np.asarray(values, np.float32),
+                       _seed_image(mask.shape, marker_coords_or_seeds), mask)
+    lab, it, conv = wavefront_image_flood_core(v, s, m, mode, max_iters,
+                                               check_every)
     return lab.cpu().numpy(), it, conv
 
 
 def wavefront_flood(affinities: torch.Tensor, seeds: torch.Tensor,
-                    mask: torch.Tensor, max_iters: int = 512):
-    """The synchronous claim recurrence on the tensors' device.
-
-    ``affinities`` (3, Z, Y, X) float, ``seeds`` (Z, Y, X) int (0 =
-    unseeded), ``mask`` (Z, Y, X) bool. Returns ``(labels int32, n_iters,
-    converged)``: ``n_iters`` counts the steps up to and including the
-    first step that claims nothing (``converged``), or ``max_iters``."""
-    aff = affinities.to(torch.float32)
-    d, lab, ckd, cki, code = init_state(seeds, mask)
-    weights = edge_weights(aff)
-    idx, offs = neighbour_index(mask.shape, aff.device)
-    free = code == 1
-    d_pad, lab_pad = pad_ring(d, _INF), pad_ring(lab, 0)
-    for it in range(1, max_iters + 1):
-        d, lab, ckd, cki, claim = _claim_step(d_pad, lab_pad, ckd, cki,
-                                              weights, idx, offs, free)
-        if not bool(claim.any()):
-            return lab, it, True
-        d_pad[_INTERIOR] = d
-        lab_pad[_INTERIOR] = lab
-    return lab_pad[_INTERIOR].clone(), max_iters, False
+                    mask: torch.Tensor, mode="claim", max_iters: int = 512,
+                    check_every: int = 8):
+    """The affinity flood on the tensors' device (JAX
+    ``wavefront_flood_jit``): ``mode="claim"`` is the claim recurrence,
+    ``"minimax"`` the monotone one. ``affinities`` (3, Z, Y, X) float,
+    ``seeds`` (Z, Y, X) int (0 = unseeded), ``mask`` (Z, Y, X) bool.
+    Returns ``(labels int32, n_iters, converged)`` with JAX's loop
+    (``run_checked``)."""
+    step, state = _steps(edge_weights(affinities.to(torch.float32)), seeds,
+                         mask, mode)
+    state, it, conv = run_checked(step, state, max_iters, check_every)
+    return state[1][_INTERIOR], it, conv
 
 
-def wavefront_affinity_flood(affinities, marker_coords, mask, max_iters=512,
-                             device=None):
+def wavefront_affinity_flood(affinities, marker_coords, mask, mode="claim",
+                             max_iters=512, check_every=8, device=None):
     """NumPy-facing wrapper with the oracle's calling convention: seeds
     take labels 1..n in row order. Returns ``(labels int32, n_iters,
     converged)``."""
     from ..device import resolve_device
 
-    dev = resolve_device(device)
     mask = np.asarray(mask).astype(bool)
-    seeds = np.zeros(mask.shape, np.int32)
-    mc = np.asarray(marker_coords)
-    if len(mc):
-        seeds[tuple(mc.T)] = np.arange(1, len(mc) + 1, dtype=np.int32)
-    lab, it, conv = wavefront_flood(
-        torch.as_tensor(np.asarray(affinities, np.float32), device=dev),
-        torch.as_tensor(seeds, device=dev), torch.as_tensor(mask, device=dev),
-        max_iters=max_iters)
+    a, s, m = _tensors(resolve_device(device),
+                       np.asarray(affinities, np.float32),
+                       _seed_image(mask.shape, marker_coords), mask)
+    lab, it, conv = wavefront_flood(a, s, m, mode, max_iters, check_every)
     return lab.cpu().numpy(), it, conv
+
+
+def claim_until_quiet(affinities, seeds, mask, max_steps):
+    """The affinity claim recurrence under the CUDA kernel's stopping rule
+    (``run_until_quiet``): the plain version of the kernel at
+    ``inner_cap=1``."""
+    step, state = _steps(edge_weights(affinities.to(torch.float32)), seeds,
+                         mask, "claim")
+    state, n, conv = run_until_quiet(step, state, max_steps)
+    return state[1][_INTERIOR], n, conv
+
+
+def image_claim_until_quiet(values, seeds, mask, max_steps):
+    """The hop-tie image recurrence under the CUDA kernel's stopping rule:
+    the plain version of the image kernel at ``inner_cap=1``."""
+    values = values.to(torch.float32)
+    step, state = _steps(values, seeds, mask, "claim", seed_values=values,
+                         hop_ties=True)
+    state, n, conv = run_until_quiet(step, state, max_steps)
+    return state[1][_INTERIOR], n, conv

@@ -46,7 +46,7 @@ import threading
 import torch
 
 from .device_flood import (_INTERIOR, _claim_step, edge_weights, init_state,
-                           neighbour_index, pad_ring, wavefront_flood)
+                           neighbour_index, pad_ring, claim_until_quiet)
 
 __all__ = ["affinity_flood", "affinity_flood_plain", "affinity_flood_start",
            "build", "launches", "reset_launches", "TILE",
@@ -364,7 +364,7 @@ def affinity_flood_plain(affinities, seeds, mask, max_launches=512,
     n_steps, converged)`` as ``affinity_flood`` does."""
     _check(affinities, seeds, mask, inner_cap, max_launches)
     if inner_cap == 1 and stats is None:
-        return wavefront_flood(affinities, seeds, mask, max_iters=max_launches)
+        return claim_until_quiet(affinities, seeds, mask, max_launches)
     grid = TileGrid(mask.shape, TILE)
     d, lab, ckd, cki, code = init_state(seeds, mask)
     w_t = grid.tiled(edge_weights(affinities), _INF)

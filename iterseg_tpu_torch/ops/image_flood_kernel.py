@@ -15,7 +15,7 @@ worklist, and one persistent cooperative launch that runs every step over a
 frontier of active tiles with a grid sync between steps. With
 ``inner_cap=1`` both the kernel and ``image_flood_plain`` equal the
 synchronous hop-tie recurrence
-(``ops/device_flood.wavefront_image_flood_core``) and JAX
+(``ops/device_flood.image_claim_until_quiet``) and JAX
 ``wavefront_image_flood_jit(mode="claim")`` bit for bit.
 
 Unlike the Pallas kernel, which does not tile x and so cannot hold a frame
@@ -43,7 +43,7 @@ import threading
 import torch
 
 from .device_flood import (_image_claim_step, image_init_state,
-                           neighbour_index, wavefront_image_flood_core)
+                           neighbour_index, image_claim_until_quiet)
 from .flood_kernel import (TileGrid, build_kernel_library, first_worklist,
                            flood_on_card, run_tiled, start_on_card)
 
@@ -134,8 +134,7 @@ def image_flood_plain(values, seeds, mask, max_launches=512, inner_cap=1,
     does."""
     _check(values, seeds, mask, inner_cap, max_launches)
     if inner_cap == 1 and stats is None:
-        return wavefront_image_flood_core(values, seeds, mask,
-                                          max_iters=max_launches)
+        return image_claim_until_quiet(values, seeds, mask, max_launches)
     grid = TileGrid(mask.shape, TILE)
     d, lab, h, ckd, ckh, cki, code = image_init_state(values, seeds, mask)
     idx, offs = neighbour_index(mask.shape, values.device)

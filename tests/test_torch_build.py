@@ -55,3 +55,24 @@ def test_header_edit_rebuilds(tmp_path, monkeypatch):
     write(hdr, "// v2\n")
     second = _build.build_library(src, "k", cmd)
     assert second != first and os.path.exists(second)
+
+
+def test_package_data_ships_every_local_include():
+    """An installed port builds its kernels only if every file a ``.cu``
+    includes by a local ``#include "..."`` ships as package data."""
+    import fnmatch
+    import re
+    import tomllib
+
+    root = os.path.dirname(os.path.dirname(CSRC))
+    with open(os.path.join(root, "pyproject.toml"), "rb") as f:
+        globs = tomllib.load(f)["tool"]["setuptools"]["package-data"][
+            "iterseg_tpu_torch"]
+    included = set()
+    for name in os.listdir(CSRC):
+        with open(os.path.join(CSRC, name)) as f:
+            for inc in re.findall(r'#include\s+"([^"]+)"', f.read()):
+                included.add("csrc/" + inc)
+    assert "csrc/flood_schedule.cuh" in included
+    for path in sorted(included | {"csrc/" + n for n in os.listdir(CSRC)}):
+        assert any(fnmatch.fnmatch(path, g) for g in globs), path

@@ -204,21 +204,36 @@ def test_segment_unknown_segmenter(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,error", [
-    (["pod-segment", "--input", "a.zarr", "--output", "b.zarr"],
-     NotImplementedError),
-    (["--device", "cpu", "segment", "--device-flood", "exact"],
-     NotImplementedError),
-    (["--device", "cpu", "segment", "--device-flood", "auto"],
-     NotImplementedError),
-    (["--device", "cpu", "segment", "--flood-telemetry"],
-     NotImplementedError),
+    pytest.param(["pod-segment", "--input", "a.zarr", "--output", "b.zarr"],
+                 NotImplementedError, id="argv0-NotImplementedError"),
+    pytest.param(["--device", "cpu", "segment", "--device-flood", "exact"],
+                 None, id="argv1-NotImplementedError"),
+    pytest.param(["--device", "cpu", "segment", "--device-flood", "auto"],
+                 None, id="argv2-NotImplementedError"),
+    pytest.param(["--device", "cpu", "segment", "--flood-telemetry"],
+                 None, id="argv3-NotImplementedError"),
 ])
 def test_unported_paths_raise(stack_zarrs, tmp_path, argv, error):
-    if argv[-1] != "b.zarr":
-        argv = argv + ["--input", stack_zarrs[0], "--output-dir",
-                       str(tmp_path)] + GRID
-    with pytest.raises(error, match="slice"):
-        tcli.main(argv)
+    """``pod-segment`` still raises (slice 7). The flood options of slice 3
+    run: ``exact`` and ``--flood-telemetry`` give the default flood's
+    labels, ``auto`` on the CPU is the ``"xla"`` flood (``True``)."""
+    from iterseg_tpu_torch.engine.segmentation import affinity_unet_watershed
+
+    if error is not None:
+        with pytest.raises(error, match="slice"):
+            tcli.main(argv)
+        return
+    ip, _, image = stack_zarrs
+    assert tcli.main(argv + ["--input", ip, "--output-dir", str(tmp_path),
+                             "--name", "m"] + GRID) == 0
+    _, got = read_ome(str(tmp_path / "m.ome.zarr"))
+    flood = {"exact": False, "auto": True}.get(argv[-1], False)
+    want = affinity_unet_watershed(None, image, None, "x", None,
+                                   chunk_size=(8, 48, 48), margin=(1, 8, 8),
+                                   debug=True, devices=[CPU],
+                                   device_flood=flood)
+    assert got.max() > 0
+    np.testing.assert_array_equal(got, want)
 
 
 def test_serve_local_devices_raises(tmp_path, monkeypatch):

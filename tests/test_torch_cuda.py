@@ -348,3 +348,165 @@ def test_serve_once_pallas_on_card(cuda, tmp_path):
     assert fk.launches() == 2 * 2
     assert sorted(os.listdir(tmp_path / "out")) == [
         "a.done", "a.ome.zarr", "b.done", "b.ome.zarr"]
+
+
+def prod_like_outs(seed, device, shape=(16, 40, 40), n=16):
+    """The affinity pipeline's device outputs for a prod-like volume: three
+    distinct smooth affinity channels, the mask above 0.08, candidates at
+    the 5³ peaks (``tests/test_flood_exact`` builds the same with JAX)."""
+    r = np.random.default_rng(seed)
+    vol = np.zeros(shape, np.float32)
+    pts = np.stack([r.integers(3, s - 3, size=n) for s in shape], 1)
+    vol[tuple(pts.T)] = 1.0
+    vol = ndi.gaussian_filter(vol, (1.5, 3, 3))
+    vol /= vol.max()
+    aff = np.stack([ndi.gaussian_filter(
+        1.0 - vol + r.normal(0, 0.01, shape).astype(np.float32), 0.5)
+        for _ in range(3)]).astype(np.float32)
+    mask = vol > 0.08
+    peaks = np.argwhere((vol == ndi.maximum_filter(vol, size=5)) & mask)
+    order = np.zeros(256, np.int64)
+    flat = np.ravel_multi_index(tuple(peaks.T), shape)
+    order[:len(flat)] = flat
+    outs = (np.pad(aff, ((0, 0),) + ((1, 1),) * 3),
+            np.packbits(mask.ravel()), order, np.int32(len(flat)),
+            np.float32(0.08), vol)
+    return shape, tuple(torch.as_tensor(o).to(device) for o in outs)
+
+
+@pytest.mark.parametrize("case", [noise_case, smooth_case])
+def test_certificate_on_card_equals_cpu(cuda, case):
+    from iterseg_tpu_torch.ops.flood_exact import (certificate_flood,
+                                                   image_certificate_flood)
+
+    aff, coords, mask = case()
+    want = certificate_flood(aff, coords, mask, device="cpu")
+    got = certificate_flood(aff, coords, mask, device=cuda)
+    for g, w in zip(got[:4], want[:4]):
+        np.testing.assert_array_equal(g, w)
+    assert got[4] == want[4]
+    image, markers, imask = edt_case()
+    want = image_certificate_flood(image, markers, imask, device="cpu")
+    got = image_certificate_flood(image, markers, imask, device=cuda)
+    for g, w in zip(got[:4], want[:4]):
+        np.testing.assert_array_equal(g, w)
+    assert got[4] == want[4]
+
+
+def test_exact_floods_on_card_equal_cpu(cuda):
+    from iterseg_tpu_torch.ops import flood_exact as fe
+    from iterseg_tpu_torch.ops.watershed import (affinity_watershed,
+                                                 image_watershed)
+
+    for case in (noise_case, smooth_case):
+        aff, coords, mask = case()
+        host = affinity_watershed(aff, coords, mask)
+        for guards in ((fe.TIE_PROBE_DEFAULT, fe.REPAIR_DOOM_FRAC),
+                       (0.0, 0.0)):
+            tc, tg = {}, {}
+            want = fe.exact_affinity_flood(aff, coords, mask, telemetry=tc,
+                                           tie_probe=guards[0],
+                                           repair_doom=guards[1],
+                                           device="cpu")
+            got = fe.exact_affinity_flood(aff, coords, mask, telemetry=tg,
+                                          tie_probe=guards[0],
+                                          repair_doom=guards[1], device=cuda)
+            np.testing.assert_array_equal(got, want)
+            np.testing.assert_array_equal(got, host)
+            assert tg == tc
+        inputs = as_inputs(aff, coords, mask, cuda)
+        got = fe.verified_exact_flood(*inputs, tie_probe=0.0, repair_doom=0.0)
+        want = fe.verified_exact_flood(*(t.cpu() for t in inputs),
+                                       tie_probe=0.0, repair_doom=0.0)
+        np.testing.assert_array_equal(got[0].cpu().numpy(), want[0].numpy())
+        assert got[1:] == want[1:]
+    image, markers, imask = edt_case()
+    got = fe.exact_image_flood(image, markers, imask, tie_probe=0.0,
+                               repair_doom=0.0, device=cuda)
+    np.testing.assert_array_equal(got, image_watershed(image, markers, imask))
+
+
+@pytest.mark.parametrize("mode", ["claim", "minimax"])
+def test_xla_floods_on_card_equal_cpu(cuda, mode):
+    from iterseg_tpu_torch.ops import device_flood as df
+
+    for case in (noise_case, smooth_case):
+        aff, coords, mask = case()
+        for loop in ((512, 8), (10, 8)):
+            want = df.wavefront_affinity_flood(aff, coords, mask, mode, *loop,
+                                               device="cpu")
+            got = df.wavefront_affinity_flood(aff, coords, mask, mode, *loop,
+                                              device=cuda)
+            np.testing.assert_array_equal(got[0], want[0])
+            assert got[1:] == want[1:]
+    image, markers, imask = edt_case()
+    want = df.wavefront_image_flood(image, markers, imask, mode, device="cpu")
+    got = df.wavefront_image_flood(image, markers, imask, mode, device=cuda)
+    np.testing.assert_array_equal(got[0], want[0])
+    assert got[1:] == want[1:]
+
+
+@pytest.mark.parametrize("seed", [5, 8, 0])
+def test_pipeline_modes_on_card_equal_cpu(cuda, seed):
+    """Given the same device outputs, ``"exact"`` on the card is the
+    default flood's labels (certified, repaired, unresolved with the
+    speculative host flood), and ``"xla"`` with telemetry is the CPU's run
+    with the same counts."""
+    from iterseg_tpu_torch.engine.device_pipeline import AffinityPipeline
+
+    cpu = torch.device("cpu")
+    shape, outs = prod_like_outs(seed, cuda)
+    shape, outs_cpu = prod_like_outs(seed, cpu)
+    want = AffinityPipeline(None, cand_capacity=256, device=cpu)._finalize(
+        shape, outs_cpu).copy()
+    prof = {}
+    got = AffinityPipeline(None, cand_capacity=256, device_flood="exact",
+                           device=cuda)._finalize(shape, outs, profile=prof)
+    np.testing.assert_array_equal(got, want)
+    assert prof["flood_exact_path"] == {
+        5: "certified", 8: "repaired", 0: "fallback:unresolved"}[seed]
+    pc, pg = {}, {}
+    kw = dict(cand_capacity=256, device_flood="xla", flood_telemetry=True)
+    want = AffinityPipeline(None, device=cpu, **kw)._finalize(
+        shape, outs_cpu, profile=pc)
+    got = AffinityPipeline(None, device=cuda, **kw)._finalize(
+        shape, outs, profile=pg)
+    np.testing.assert_array_equal(got, want)
+    for key in ("flood_iters", "flood_uncertain_frac",
+                "flood_disagreement_bound", "flood_mask_voxels",
+                "flood_certificate_converged"):
+        assert pg[key] == pc[key], key
+
+
+def test_dog_modes_on_card(cuda):
+    from iterseg_tpu_torch.engine.device_pipeline import DoGPipeline
+
+    r = np.random.default_rng(3)
+    vol = np.zeros((12, 48, 48), np.float32)
+    pts = np.stack([r.integers(3, s - 3, size=16) for s in vol.shape], 1)
+    vol[tuple(pts.T)] = 1.0
+    vol = ndi.gaussian_filter(vol, (1, 2, 2))
+    vol /= vol.max()
+    fast = DoGPipeline().segment(vol)
+    np.testing.assert_array_equal(DoGPipeline(device_flood="exact").segment(
+        vol), fast)
+    np.testing.assert_array_equal(
+        DoGPipeline(device_flood="xla").segment(vol),
+        DoGPipeline(device_flood="xla", device=torch.device("cpu")).segment(
+            vol))
+
+
+def test_true_resolves_to_pallas_or_host_on_card(cuda):
+    from iterseg_tpu_torch.engine import linkprobe
+    from iterseg_tpu_torch.engine.device_pipeline import (AffinityPipeline,
+                                                          DoGPipeline)
+
+    linkprobe.reset_cache()
+    mbps = linkprobe.measure_link_mbps()
+    assert mbps is not None and mbps > 0
+    want = ("pallas" if mbps >= linkprobe.MEASURED[
+        "device_flood_crossover_mbps"] else False)
+    for cls in (AffinityPipeline, DoGPipeline):
+        assert cls.normalize_device_flood(True) == want
+        assert cls.normalize_device_flood(True, cuda) == want
+    assert DoGPipeline(device_flood=True).device_flood == want

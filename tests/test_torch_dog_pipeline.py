@@ -8,7 +8,9 @@ the CPU, at (10, 48, 48) and (12, 48, 48).
   the overflow, no-native and non-convergence paths stay exact.
 - ``device_flood="pallas"`` keeps the default run's support and id set, at
   agreement > 0.9, also on a wide-X volume where JAX's Pallas kernel would
-  reroute (the port never does).
+  reroute (the port never does). ``"xla"`` is bit-equal to JAX's ``"xla"``
+  given the same device outputs; ``"exact"`` is bit-equal to the default
+  flood on its tie-density, unresolved and sqrt-collision paths.
 - Entry point: 3D and 4D, integer wire, ``save_dir`` loaded by JAX's
   ``load_ome_zarr``, warm restart; the registry; the trio with the JSON
   configs in ``examples/config_files``.
@@ -231,11 +233,83 @@ def test_trio_runs_with_example_configs(name):
 
 
 def test_unsupported_modes_raise():
-    for mode in (True, "xla", "exact"):
-        with pytest.raises(NotImplementedError, match="slice 3"):
-            tdp.DoGPipeline(device_flood=mode, device=CPU)
+    """Only slice 7 (several GPUs) and an unknown mode still raise; every
+    flood mode builds."""
+    want = {True: "xla", "xla": "xla", "exact": "exact", "pallas": "pallas",
+            False: False}
+    for mode, resolved in want.items():
+        assert tdp.DoGPipeline(device_flood=mode,
+                               device=CPU).device_flood == resolved
     with pytest.raises(ValueError):
         tdp.DoGPipeline(device_flood="cuda", device=CPU)
     with pytest.raises(NotImplementedError, match="slice 7"):
         tseg.dog_blob_watershed(None, np.zeros((2, 10, 32, 32), np.uint16),
                                 debug=True, devices=[CPU, CPU])
+
+
+def test_xla_finalize_equals_jax():
+    """``"xla"`` is JAX's hop-tie recurrence on ``-sqrt(d²)``: bit-equal to
+    JAX's ``"xla"`` given the same device outputs."""
+    v = blob_volume(shape=(12, 48, 48), n=16, seed=31)
+    jpipe = jdp.DoGPipeline(device_flood="xla")
+    outs = jpipe._device_outputs(v)
+    want = np.asarray(jpipe._finalize(v.shape, outs))
+    prof = {}
+    got = tdp.DoGPipeline(device_flood="xla", device=CPU)._finalize(
+        v.shape, tuple(torch.from_numpy(np.array(o)) for o in outs),
+        profile=prof)
+    assert want.max() > 5 and prof["flood_iters"] % 8 == 0
+    np.testing.assert_array_equal(got, want)
+    host = tdp.DoGPipeline(device=CPU)._finalize(
+        v.shape, tuple(torch.from_numpy(np.array(o)) for o in outs))
+    np.testing.assert_array_equal(got > 0, host > 0)
+
+
+@pytest.mark.parametrize("patch,path", [
+    ({}, "fallback:tie-density"),
+    ({"TIE_PROBE_DEFAULT": 1.0}, "certified"),
+    ({"TIE_PROBE_DEFAULT": 1.0, "BUCKET_FLOOD_MAX_KEY": 1},
+     "fallback:sqrt-collision"),
+], ids=["tie_density", "certified", "sqrt_collision"])
+def test_exact_equals_default(vol, labels, monkeypatch, patch, path):
+    """``"exact"`` is bit-equal to the default host flood on each of its
+    DoG paths: the in-program tie probe (EDT landscapes are tie-heavy), the
+    certificate with the probe off (it certifies this volume), and the
+    ``-d²`` key past the collision bound (the bound lowered; the host flood
+    then takes the heap, which is exact there too)."""
+    from iterseg_tpu_torch.ops import flood_exact as tfe
+
+    for name, value in patch.items():
+        monkeypatch.setattr(native if name.startswith("BUCKET") else tfe,
+                            name, value)
+    prof = {}
+    out = np.full(labels.shape, -1, np.int32)
+    got = tdp.DoGPipeline(device_flood="exact", device=CPU).segment(
+        vol, out=out, profile=prof)
+    np.testing.assert_array_equal(got, labels)
+    np.testing.assert_array_equal(out, labels)
+    assert prof["flood_exact_path"] == path
+    assert prof["flood_tie_frac_scope"] == "filtered"
+    fallback = path.startswith("fallback")
+    assert ("flood" in prof) is ("gather_distance" in prof) is fallback
+    assert ("download_labels" in prof) is (not fallback)
+    assert ("flood_uncertain_frac" in prof) is (path != "fallback:tie-density")
+
+
+def test_exact_stack_and_registry(tmp_path):
+    """The stack path and the segmenter honour ``"exact"`` per frame, and a
+    JSON config carries it."""
+    stack = np.stack([blob_volume(shape=(10, 40, 40), n=10, seed=s)
+                      for s in (55, 56)])
+    ref = np.zeros((2,) + stack.shape[1:], np.int32)
+    got = np.zeros_like(ref)
+    list(tdp.DoGPipeline(device=CPU).segment_stack(stack, ref,
+                                                   skip_labelled=False))
+    list(tdp.DoGPipeline(device_flood="exact", device=CPU).segment_stack(
+        stack, got, skip_labelled=False))
+    np.testing.assert_array_equal(got, ref)
+    cfg = tmp_path / "dog.json"
+    cfg.write_text('{"device_flood": "exact"}')
+    out = tseg.dog_blob_watershed(None, stack[0], None, "x", str(cfg),
+                                  debug=True, devices=[CPU])
+    np.testing.assert_array_equal(np.asarray(out), ref[0])

@@ -7,6 +7,10 @@ Pallas kernel (interpreted) on the fixtures of ``tests/test_device_flood``.
   keep their ids, every label is a seed id.
 - Floors: mean oracle agreement > 0.94 on ``smooth_case`` seeds 0-2, and
   > 0.9 against ``pallas_wavefront_flood(..., interpret=True)``.
+- ``wavefront_affinity_flood`` (the ``device_flood="xla"`` flood) in both
+  modes: labels, ``n_iters`` and ``converged`` equal to JAX's, also where
+  the loop reaches ``max_iters`` and stops past it (``max_iters`` not a
+  multiple of ``check_every``).
 - The CUDA kernel itself runs only on a card: ``tests/test_torch_cuda.py``.
 """
 import jax.numpy as jnp
@@ -169,3 +173,48 @@ def test_numpy_wrapper_matches_jax():
     want, _, jconv = jax_affinity_flood(aff, coords, mask, mode="claim")
     assert conv and jconv
     np.testing.assert_array_equal(got, want)
+
+
+LOOPS = [pytest.param((512, 8), id="default"),
+         pytest.param((5, 1), id="check_every_1")]
+
+
+@pytest.mark.parametrize("loop", LOOPS)
+@pytest.mark.parametrize("case,mode", [
+    pytest.param(CASES[0].values[0], "claim", id="make_case-claim"),
+    pytest.param(CASES[2].values[0], "claim", id="smooth_case0-claim"),
+    pytest.param(CASES[0].values[0], "minimax", id="make_case-minimax"),
+])
+def test_wavefront_affinity_flood_equals_jax(case, mode, loop):
+    aff, coords, mask = case()
+    max_iters, check_every = loop
+    want = jax_affinity_flood(aff, coords, mask, mode=mode,
+                              max_iters=max_iters, check_every=check_every)
+    got = tdf.wavefront_affinity_flood(aff, coords, mask, mode=mode,
+                                       max_iters=max_iters,
+                                       check_every=check_every, device="cpu")
+    assert got[0].dtype == np.int32
+    np.testing.assert_array_equal(got[0], want[0])
+    assert got[1:] == want[1:]
+    assert got[1] % check_every == 0
+
+
+def test_wavefront_reaches_max_iters_then_decides():
+    """At the cap the extra step decides: ``smooth_case(1)`` stops at 16
+    steps with ``max_iters=10`` and converges in JAX's extra step, which
+    the kernels' stopping rule at 10 steps calls unconverged."""
+    aff, coords, mask = smooth_case(seed=1)
+    got = tdf.wavefront_affinity_flood(aff, coords, mask, max_iters=10,
+                                       device="cpu")
+    want = jax_affinity_flood(aff, coords, mask, max_iters=10)
+    assert got[1:] == want[1:] == (16, True)
+    np.testing.assert_array_equal(got[0], want[0])
+    _, n, conv = tdf.claim_until_quiet(*as_inputs(aff, coords, mask), 10)
+    assert (n, conv) == (10, False)
+
+
+def test_wavefront_rejects_unknown_mode():
+    aff, coords, mask = make_case(seed=3)
+    with pytest.raises(ValueError, match="minimax"):
+        tdf.wavefront_affinity_flood(aff, coords, mask, mode="heap",
+                                     device="cpu")

@@ -10,6 +10,9 @@ the DoG path's −EDT landscape.
   component is exact against the heap.
 - Floors: mean oracle agreement > 0.97 on seeds 0-2, and > 0.9 against
   ``pallas_image_flood(..., interpret=True)`` with the same support.
+- ``wavefront_image_flood`` (the DoG ``device_flood="xla"`` flood) in both
+  modes: labels, ``n_iters`` and ``converged`` equal to JAX's, also when
+  ``max_iters`` cuts the loop.
 - The CUDA kernel itself runs only on a card: ``tests/test_torch_cuda.py``.
 """
 import jax.numpy as jnp
@@ -181,3 +184,20 @@ def test_wrapper_checks_inputs():
         ifk.image_flood(values[None], seeds[None], mask[None])
     with pytest.raises(ValueError):
         ifk.image_flood(values, seeds, mask, inner_cap=0)
+
+
+@pytest.mark.parametrize("mode,loop", [
+    pytest.param("claim", (512, 8), id="claim-default"),
+    pytest.param("claim", (3, 2), id="claim-cut"),
+    pytest.param("minimax", (3, 2), id="minimax-cut"),
+])
+def test_wavefront_image_flood_equals_jax(mode, loop):
+    image, markers, mask = edt_case(seed=1)
+    max_iters, check_every = loop
+    want = jax_image_flood(image, markers, mask, mode=mode,
+                           max_iters=max_iters, check_every=check_every)
+    got = tdf.wavefront_image_flood(image, markers, mask, mode=mode,
+                                    max_iters=max_iters,
+                                    check_every=check_every, device="cpu")
+    np.testing.assert_array_equal(got[0], want[0])
+    assert got[1:] == want[1:]

@@ -6,7 +6,11 @@ package, on the CPU, at (10, 96, 96) with chunk (10, 64, 64) and margin
 - Fast path (``AffinityPipeline.segment``) == generic path
   (``predict_volume`` + ``segment_output_image``), bit for bit.
 - Given JAX's device outputs, ``_finalize`` labels are bit-equal to JAX's.
-- ``device_flood="pallas"`` keeps the default run's label support and ids.
+- ``device_flood="pallas"`` keeps the default run's label support and ids;
+  ``"xla"`` is bit-equal to JAX's ``"xla"``, with telemetry counts equal to
+  JAX's; ``"exact"`` is bit-equal to the default flood on every path
+  (certified, repaired, both tie-probe exits, unresolved with and without
+  the speculative host flood, the repair-doom exit) and through ``out=``.
 - Entry point: 3D volume and 4D stack with ``save_dir``, warm restart.
 End-to-end labels built from the two frameworks' forwards are reported as
 an agreement fraction, not asserted equal.
@@ -36,6 +40,7 @@ from iterseg_tpu_torch.engine.segmentation import (
 )
 from iterseg_tpu_torch.ops import flood_kernel as fk
 from iterseg_tpu_torch.ops import watershed as tw
+import test_flood_exact
 from torch_threads import two_torch_threads  # noqa: F401
 
 CPU = torch.device("cpu")
@@ -251,19 +256,174 @@ def test_json_config_sources(tmp_path, vol_u16):
                                        None)
 
 
-def test_unsupported_modes_raise(model):
-    for mode in (True, "xla", "exact"):
-        with pytest.raises(NotImplementedError, match="slice 3"):
-            tdp.AffinityPipeline(model, device_flood=mode, device=CPU)
-    with pytest.raises(NotImplementedError):
-        tdp.AffinityPipeline(model, flood_telemetry=True, device=CPU)
+def test_unsupported_modes_raise(model, vol_u16, fast_labels):
+    """Only slice 7 (several GPUs) still raises; every flood mode builds,
+    and ``flood_telemetry`` runs on a volume and on a stack (JAX drops it
+    on a stack; the port keeps it)."""
+    want = {True: "xla", "xla": "xla", "exact": "exact", "pallas": "pallas",
+            False: False, None: False}
+    for mode, resolved in want.items():
+        pipe = tdp.AffinityPipeline(model, device_flood=mode, device=CPU)
+        assert pipe.device_flood == resolved and pipe.speculative_flood
+    assert tdp.AffinityPipeline(model, flood_telemetry=True,
+                                device=CPU).flood_telemetry
     with pytest.raises(NotImplementedError, match="slice 7"):
         affinity_unet_watershed(None, np.zeros((2,) + SHAPE, np.uint16),
                                 debug=True, devices=[CPU, CPU])
-    for vol in (np.zeros(SHAPE, np.uint16), np.zeros((2,) + SHAPE, np.uint16)):
-        with pytest.raises(NotImplementedError, match="certificate"):
-            affinity_unet_watershed(None, vol, debug=True, devices=[CPU],
-                                    flood_telemetry=True)
+    kw = dict(chunk_size=CHUNK, margin=MARGIN, debug=True, devices=[CPU],
+              flood_telemetry=True)
+    got = affinity_unet_watershed(None, vol_u16, **kw)
+    np.testing.assert_array_equal(np.asarray(got), fast_labels)
+    stack = np.stack([vol_u16, vol_u16])
+    got = np.asarray(affinity_unet_watershed(None, stack, device_flood="xla",
+                                             **kw))
+    xla = tdp.AffinityPipeline(model, CHUNK, MARGIN, device_flood="xla",
+                               device=CPU).segment(prepare_volume(vol_u16))
+    np.testing.assert_array_equal(got[0], xla)
+    np.testing.assert_array_equal(got[1], xla)
+
+
+def test_telemetry_on_a_stack_reports_the_bound(model, vol_u16):
+    pipe = tdp.AffinityPipeline(model, CHUNK, MARGIN, device_flood="xla",
+                                flood_telemetry=True, device=CPU)
+    out = np.zeros((1,) + SHAPE, np.int32)
+    prof = {}
+    assert list(pipe.segment_stack(vol_u16[None], out, profile=prof)) == [0]
+    assert prof["flood_certificate_converged"] is True
+    assert 0.0 <= prof["flood_disagreement_bound"] <= 1.0
+    assert prof["flood_mask_voxels"] > 0 and "flood_telemetry" in prof
+
+
+def test_xla_finalize_equals_jax(jax_outs, fast_labels):
+    """``"xla"`` is JAX's recurrence: bit-equal to JAX's ``"xla"`` given
+    the same device outputs, with the default run's support and ids."""
+    _, outs = jax_outs
+    want = np.array(jdp.AffinityPipeline(None, CHUNK, MARGIN,
+                                         device_flood="xla")._finalize(
+        SHAPE, outs))
+    prof = {}
+    got = tdp.AffinityPipeline(None, CHUNK, MARGIN, device_flood="xla",
+                               device=CPU)._finalize(SHAPE, to_torch(outs),
+                                                     profile=prof)
+    np.testing.assert_array_equal(got, want)
+    assert prof["flood_iters"] % 8 == 0 and "flood" not in prof
+    host = tdp.AffinityPipeline(None, CHUNK, MARGIN, device=CPU)._finalize(
+        SHAPE, to_torch(outs))
+    np.testing.assert_array_equal(got > 0, host > 0)
+    assert set(np.unique(got)) == set(np.unique(host))
+
+
+EXACT = test_flood_exact.TestPipelineExactFlood()
+
+
+def exact_outs(kind):
+    """``TestPipelineExactFlood``'s prod-like fixtures (seed 5 certifies,
+    seed 8 repairs, seed 0 stays unresolved), its quantised variant (the
+    early tie probe trips) and its chaotic plateau (phase C's uncertainty
+    passes the repair-doom band)."""
+    if kind == "plateau":
+        return EXACT._plateau_outs()
+    shape, outs = EXACT._outs(seed={"certified": 5, "repaired": 8,
+                                    "unresolved": 0, "quantised": 6}[kind])
+    if kind == "quantised":
+        r = np.random.default_rng(6)
+        aff_q = (r.integers(0, 3, size=outs[0].shape) / 2.0).astype(
+            np.float32)
+        outs = (jnp.asarray(aff_q),) + tuple(outs[1:])
+    return shape, outs
+
+
+def test_xla_telemetry_equals_jax():
+    shape, outs = exact_outs("certified")
+    jprof, prof = {}, {}
+    want = np.array(jdp.AffinityPipeline(
+        None, cand_capacity=256, device_flood="xla",
+        flood_telemetry=True)._finalize(shape, outs, profile=jprof))
+    got = tdp.AffinityPipeline(None, cand_capacity=256, device_flood="xla",
+                               flood_telemetry=True, device=CPU)._finalize(
+        shape, to_torch(outs), profile=prof)
+    np.testing.assert_array_equal(got, want)
+    for key in ("flood_uncertain_frac", "flood_mismatch_certain_frac",
+                "flood_disagreement_bound", "flood_mask_voxels",
+                "flood_certificate_converged"):
+        assert prof[key] == jprof[key], key
+    host = tdp.AffinityPipeline(None, cand_capacity=256, device=CPU)
+    n_disagree = int((got != host._finalize(shape, to_torch(outs))).sum())
+    assert n_disagree <= prof["flood_disagreement_bound"] * prof[
+        "flood_mask_voxels"] + 0.5
+
+
+@pytest.mark.parametrize("kind,path,speculative", [
+    ("certified", "certified", False),
+    ("repaired", "repaired", False),
+    ("unresolved", "fallback:unresolved", True),
+    ("quantised", "fallback:tie-density", False),
+    ("plateau", "fallback:unresolved", True),
+])
+def test_exact_finalize_equals_default(kind, path, speculative):
+    shape, outs = exact_outs(kind)
+    want = np.array(jdp.AffinityPipeline(None, cand_capacity=256)._finalize(
+        shape, outs))
+    host = tdp.AffinityPipeline(None, cand_capacity=256, device=CPU)
+    np.testing.assert_array_equal(host._finalize(shape, to_torch(outs)), want)
+    dev = tdp.AffinityPipeline(None, cand_capacity=256, device_flood="exact",
+                               device=CPU)
+    prof = {}
+    got = dev._finalize(shape, to_torch(outs), profile=prof)
+    np.testing.assert_array_equal(got, want)
+    assert prof["flood_exact_path"] == path
+    assert prof.get("flood_speculative", False) is speculative
+    if kind == "quantised":  # the early probe: the certificate never ran
+        assert prof["flood_tie_frac_scope"] == "prefilter"
+        assert prof["flood_tie_frac"] > 0.02
+        assert "flood_uncertain_frac" not in prof and "flood" in prof
+    else:
+        assert prof["flood_tie_frac_scope"] == "filtered"
+        assert prof["flood_tie_frac"] <= 0.02
+        assert 0.0 <= prof["flood_uncertain_frac"] <= 1.0
+    if speculative:
+        assert "flood" in prof and "gather_affinities" in prof
+    elif path in ("certified", "repaired"):
+        assert "flood" not in prof and "flood_spec_waited" in prof
+        assert "device_flood" in prof and "download_labels" in prof
+    out = np.full(int(np.prod([s + 2 for s in shape])), -1, np.int32)
+    view = dev._finalize(shape, to_torch(outs), out=out)
+    np.testing.assert_array_equal(view, want)
+    assert (out.reshape([s + 2 for s in shape])[0] == 0).all()
+
+
+def test_exact_in_program_tie_probe_and_no_speculation(monkeypatch):
+    """The in-program probe on the filtered mask routes too (the early
+    probe held back by a patch), and without the speculative flood a
+    fallback runs the host flood after the certificate."""
+    shape, outs = exact_outs("quantised")
+    want = np.array(jdp.AffinityPipeline(None, cand_capacity=256)._finalize(
+        shape, outs))
+    monkeypatch.setattr(tdp, "_tie_probe",
+                        lambda mask_packed, aff_pad: torch.tensor(0.0))
+    dev = tdp.AffinityPipeline(None, cand_capacity=256, device_flood="exact",
+                               device=CPU)
+    prof = {}
+    np.testing.assert_array_equal(
+        dev._finalize(shape, to_torch(outs), profile=prof), want)
+    assert prof["flood_exact_path"] == "fallback:tie-density"
+    assert prof["flood_tie_frac_scope"] == "filtered"
+    assert prof["flood_speculative"] is True
+    dev.speculative_flood = False
+    shape, outs = exact_outs("unresolved")
+    prof = {}
+    want = np.array(jdp.AffinityPipeline(None, cand_capacity=256)._finalize(
+        shape, outs))
+    np.testing.assert_array_equal(
+        dev._finalize(shape, to_torch(outs), profile=prof), want)
+    assert prof["flood_exact_path"] == "fallback:unresolved"
+    assert "flood_speculative" not in prof and "flood" in prof
+
+
+def test_exact_entry_point_equals_default(vol_u16, fast_labels):
+    kw = dict(chunk_size=CHUNK, margin=MARGIN, debug=True, devices=[CPU])
+    got = affinity_unet_watershed(None, vol_u16, device_flood="exact", **kw)
+    np.testing.assert_array_equal(np.asarray(got), fast_labels)
 
 
 @pytest.mark.parametrize("n_chunks", [1, 3, 4, 7, 32, 36])

@@ -129,7 +129,7 @@ def test_server_shape_change(tmp_path):
     assert server._config["unet"] is model  # loaded exactly once
 
 
-@pytest.mark.parametrize("flood", [None, "pallas"])
+@pytest.mark.parametrize("flood", [None, "pallas", "xla", "exact"])
 def test_served_affinity_equals_segment_data(tmp_path, flood):
     """A JSON config names the U-Net and the flood; the served labels of a
     volume and a stack equal one-shot ``segment_data`` with the same
