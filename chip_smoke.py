@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py
 
-Run from the root of a checkout, on a machine with one CUDA card, the CUDA
-toolkit (``nvcc``) and ``g++``. It imports nothing of JAX or of
+Run from the root of a checkout, on a machine with one CUDA card (or
+several: phase ``multi`` uses them all), the CUDA toolkit (``nvcc``) and
+``g++``. It imports nothing of JAX or of
 ``iterseg_tpu``. Phases, each printing one JSON line:
 
 1. the card (``nvidia-smi`` name and power limit) and the build: the two
@@ -83,7 +84,23 @@ toolkit (``nvcc``) and ``g++``. It imports nothing of JAX or of
    status 0, three ``.done`` markers, two affinity launches a frame, the
    first volume's labels bit-equal to ``loop``'s CLI labels; each volume's
    seconds from its marker (the first pays the server's U-Net load);
-13. the ``kernels`` line: each hand-written kernel timed on the inputs its
+13. ``multi`` (one line each: ``multi_cards``, ``multi_frames`` a
+   pipeline, ``multi_pod``, ``multi_train``): every card, listed twice
+   when there is one (``[cuda:0, cuda:0]``), so the round-robin and its
+   lookahead run. A (4, 33, 512, 512) uint16 stack through
+   ``affinity_unet_watershed`` and ``dog_blob_watershed`` with
+   ``"pallas"`` on the list: labels bit-equal to one card, two launches
+   of the path's flood kernel a frame, no fallback. Two processes of
+   ``python -m iterseg_tpu_torch pod-segment`` joined by gloo over a zarr
+   of the stack (the shipped U-Net, ``"pallas"``, ``--gt``): each owns
+   frames ``t % 2 == id``, the shared output equals one process's labels
+   and the metrics CSVs one process's ``get_accuracy_metrics`` bytes.
+   Data-parallel training on the full-width ``default_unet.npz``, five
+   (10, 256, 256) chunks over the list (the last step repeat-padded): the
+   first step against the same step over ``[cpu, cpu]`` with phase 9's
+   bounds, then one epoch of ``train_unet(mesh=...)`` on the cards (ms a
+   step, peak memory a card);
+14. the ``kernels`` line: each hand-written kernel timed on the inputs its
    path gave it, against its plain version, with its launches on its path,
    its steps and tile-steps (equal to the plain frontier schedule's), the
    split of its time into the init kernel and the step kernel, and its
@@ -537,6 +554,234 @@ def run_serve(vol, stack, loop_labels, work):
             "warm_voxels_per_s": vol.size / seconds["b-vol"],
             "stack_voxels_per_s": stack.size / seconds["c-stack"],
             "objects": {s: int(v.max()) for s, v in served.items()}}
+
+
+def run_multi(work, kwargs):
+    """Phase ``multi``: every card (``[cuda:0, cuda:0]`` on a one-card
+    machine, so the round-robin and its lookahead still run), frame
+    parallelism in both pipelines, a two-process ``pod-segment`` and
+    data-parallel training. Returns the phase's lines."""
+    import socket
+
+    import numpy as np
+    import torch
+
+    from iterseg_tpu_torch.core.chunks import get_slices_from_chunks
+    from iterseg_tpu_torch.engine import device_pipeline as dp
+    from iterseg_tpu_torch.engine.segmentation import (
+        affinity_unet_watershed, dog_blob_watershed)
+    from iterseg_tpu_torch.eval.metrics import get_accuracy_metrics
+    from iterseg_tpu_torch.ops import flood_kernel as fk
+    from iterseg_tpu_torch.ops import image_flood_kernel as ifk
+
+    t_phase = time.perf_counter()
+    n_cards = torch.cuda.device_count()
+    devices = [torch.device("cuda", i) for i in range(n_cards)]
+    if n_cards == 1:
+        devices = devices * 2
+    distinct = len(set(devices))
+    lines = [{"phase": "multi_cards", "device_count": n_cards,
+              "names": [torch.cuda.get_device_name(i)
+                        for i in range(n_cards)],
+              "devices": [str(d) for d in devices],
+              "distinct_cards": distinct}]
+
+    # frame parallelism: a (4, 33, 512, 512) stack, both pipelines, one
+    # card against the list, two launches of the path's flood a frame
+    stack = np.stack([blob_volume((33, 512, 512), 900, s)
+                      for s in (20, 21, 22, 23)])
+    frames = {}
+    for name, call, launches, reset in (
+            ("affinity", lambda devs: affinity_unet_watershed(
+                None, stack, None, "multi", None, devices=devs,
+                device_flood="pallas", **kwargs),
+             fk.launches, fk.reset_launches),
+            ("dog", lambda devs: dog_blob_watershed(
+                None, stack, None, "multi-dog", None, devices=devs,
+                device_flood="pallas", debug=True),
+             ifk.launches, ifk.reset_launches)):
+        got, secs, counts = {}, {}, {}
+        # "all_first": each further card builds its U-Net replica and
+        # initialises its libraries at its first frame; "all" is warm
+        for key, devs in (("one", devices[:1]), ("all_first", devices),
+                          ("all", devices)):
+            reset()
+            dp.reset_flood_fallbacks()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got[key] = np.asarray(call(devs))
+            for d in set(devs):
+                torch.cuda.synchronize(d)
+            secs[key] = time.perf_counter() - t0
+            counts[key] = launches()
+            check(dp.flood_fallbacks() == 0, f"multi {name}: a fallback")
+            check(counts[key] == 2 * len(stack),
+                  f"multi {name}: {counts[key]} launches for "
+                  f"{len(stack)} frames")
+        check(got["one"].shape == stack.shape
+              and all(int(f.max()) > 0 for f in got["one"]),
+              f"multi {name}: an unlabelled frame")
+        check(np.array_equal(got["all"], got["one"])
+              and np.array_equal(got["all_first"], got["one"]),
+              f"multi {name}: the device list changes the labels")
+        frames[name] = got["one"]
+        lines.append({"phase": "multi_frames", "pipeline": name,
+                      "shape": list(stack.shape),
+                      "devices": [str(d) for d in devices],
+                      "distinct_cards": distinct, "launches": counts,
+                      "equal_to_one_device": True, "seconds": secs,
+                      "voxels_per_s": {k: stack.size / v
+                                       for k, v in secs.items()}})
+
+    # the pod: two processes of pod-segment joined by gloo over a zarr of
+    # the stack, the shipped U-Net with the CUDA flood, sharded metrics
+    gt = np.stack([blob_labels(f) for f in stack]).astype(np.uint32)
+    inp = save_volume(os.path.join(work, "in.zarr"), stack)
+    gtp = save_volume(os.path.join(work, "gt.zarr"), gt)
+    cfg = os.path.join(work, "pod.json")
+    with open(cfg, "w") as f:
+        json.dump({"unet": "default", "device_flood": "pallas"}, f)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    out = os.path.join(work, "pod.zarr")
+    argv = ["pod-segment", "--input", inp, "--output", out, "--network",
+            cfg, "--gt", gtp, "--metrics-dir", os.path.join(work, "pod-m"),
+            "--coordinator", f"127.0.0.1:{port}", "--num-processes", "2"]
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "iterseg_tpu_torch"] + argv
+        + ["--process-id", str(pid)], cwd=here, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for pid in (0, 1)]
+    try:
+        outs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    pod_s = time.perf_counter() - t0
+    for pid, (p, text) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0,
+              f"pod process {pid} exited {p.returncode}:\n{text[-3000:]}")
+        mine = [t for t in range(len(stack)) if t % 2 == pid]
+        check(f"host frames: {mine}" in text,
+              f"pod process {pid} did not own {mine}:\n{text[-2000:]}")
+    pod = read_zarr(out)
+    check(np.array_equal(pod, frames["affinity"].astype(np.uint32)),
+          "pod labels differ from one process's")
+    slices = get_slices_from_chunks(pod.shape, kwargs["chunk_size"],
+                                    kwargs["margin"])
+    one_dir = os.path.join(work, "one-m")
+    get_accuracy_metrics(slices, gt, frames["affinity"], "pod",
+                         "pod-metrics", out_path=one_dir)
+    names = sorted(os.listdir(one_dir))
+    check(names and sorted(os.listdir(os.path.join(work, "pod-m")))
+          == names, f"pod metrics files {names}")
+    for n in names:
+        with open(os.path.join(one_dir, n), "rb") as a, open(
+                os.path.join(work, "pod-m", n), "rb") as b:
+            check(a.read() == b.read(), f"pod metrics {n} differ")
+    lines.append({"phase": "multi_pod", "processes": 2,
+                  "shape": list(stack.shape),
+                  "process_devices": [str(torch.device(
+                      "cuda", pid % n_cards)) for pid in (0, 1)],
+                  "equal_to_one_process": True, "metrics_csvs": names,
+                  "metrics_equal": True, "wall_s": pod_s,
+                  "voxels_per_s": stack.size / pod_s})
+    lines.append(run_dp_training(stack, devices, distinct, work))
+    lines[-1]["multi_phase_s"] = time.perf_counter() - t_phase
+    return lines
+
+
+def run_dp_training(stack, devices, distinct, work):
+    """Data-parallel training over ``devices`` on the full-width
+    ``default_unet.npz``: five (10, 256, 256) chunks of ``stack``, so the
+    third step's batch is repeat-padded. The first step against the same
+    step over ``[cpu, cpu]`` (loss, every gradient, the running stats, with
+    ``train_parity``'s bounds), then one epoch of ``train_unet(mesh=...)``
+    on the cards; returns the phase's line."""
+    import numpy as np
+    import torch
+
+    from iterseg_tpu_torch.engine.predict import DEFAULT_UNET_PATH, load_unet
+    from iterseg_tpu_torch.helpers import read_csv
+    from iterseg_tpu_torch.models.convert import params_from_numpy
+    from iterseg_tpu_torch.parallel.mesh import Mesh, make_sharded_train_step
+    from iterseg_tpu_torch.train.labels import get_training_labels
+    from iterseg_tpu_torch.train.losses import make_loss_function
+    from iterseg_tpu_torch.train.train import train_unet
+
+    chans = ("z-1", "y-1", "x-1", "mask", "centreness-log")
+    chunk = (10, 256, 256)
+    xs, ys = [], []
+    for i in range(5):
+        z0, y0, x0 = 4 * i, 64 * (i % 3), 128 * (i % 2)
+        crop = stack[i % len(stack), z0:z0 + chunk[0], y0:y0 + chunk[1],
+                     x0:x0 + chunk[2]]
+        xs.append((crop / crop.max()).astype(np.float32))
+        ys.append(get_training_labels(blob_labels(crop), chans, (4, 1, 1),
+                                      device=devices[0]).astype(np.float32))
+    params = load_unet(None).params
+    first = {}
+    for name, devs in (("card", devices),
+                       ("cpu", [torch.device("cpu")] * len(devices))):
+        net = params_from_numpy(params).to(devs[0]).train()
+        step = make_sharded_train_step(
+            Mesh([[d] for d in devs]), net, make_loss_function("BCELoss"),
+            torch.optim.SGD(net.parameters(), lr=0.0), double_step=False)
+        t0 = time.perf_counter()
+        loss = float(step(np.stack(xs[:len(devs)])[:, None],
+                          np.stack(ys[:len(devs)]), 0))
+        first[name] = (loss, {k: p.grad.cpu() for k, p in
+                              net.named_parameters()},
+                       {k: v.cpu() for k, v in net.state_dict().items()
+                        if k.endswith(("running_mean", "running_var"))},
+                       time.perf_counter() - t0)
+    card, host = first["card"], first["cpu"]
+    loss_rel = abs(card[0] - host[0]) / abs(host[0])
+    gmax = max(float(g.abs().max()) for g in host[1].values())
+    grad_rel = max(float((card[1][k] - g).abs().max())
+                   for k, g in host[1].items()) / gmax
+    stats_rel = max(float((card[2][k] - v).abs().max() / v.abs().max())
+                    for k, v in host[2].items())
+    check(loss_rel <= 1e-5, f"DP loss card vs CPU: {loss_rel}")
+    check(grad_rel <= 5e-3, f"DP gradients card vs CPU: {grad_rel}")
+    check(stats_rel <= 1e-5, f"DP running stats card vs CPU: {stats_rel}")
+    out_dir = os.path.join(work, "dp-train")
+    cards = sorted(set(devices), key=str)
+    for d in cards:
+        torch.cuda.synchronize(d)
+        torch.cuda.reset_peak_memory_stats(d)
+    prof = {}
+    t0 = time.perf_counter()
+    train_unet(xs, [], ys, [], out_dir=out_dir, name="dp", channels=chans,
+               epochs=1, validate=False, weights=DEFAULT_UNET_PATH,
+               mesh=Mesh([[d] for d in devices]), profile=prof)
+    epoch_s = time.perf_counter() - t0
+    peaks = {str(d): torch.cuda.max_memory_allocated(d) for d in cards}
+    rows = read_csv(os.path.join(out_dir, "loss_dp.csv"))
+    dp = len(devices)
+    want_ids = [";".join(dict.fromkeys(
+        f"dp_{min(i, 4)}" for i in range(b, b + dp)))
+        for b in range(0, 5, dp)]
+    check(list(rows["data_id"]) == want_ids,
+          f"DP steps {list(rows['data_id'])}, not {want_ids}")
+    check(np.isfinite(rows["loss"]).all(), "a non-finite DP loss")
+    epoch_rel = abs(rows["loss"][0] - card[0]) / abs(card[0])
+    check(epoch_rel <= 1e-6, f"train_unet's first loss {rows['loss'][0]} "
+          f"vs the first step's {card[0]}")
+    return {"phase": "multi_train", "chunk": list(chunk), "chunks": 5,
+            "devices": [str(d) for d in devices],
+            "distinct_cards": distinct, "steps": len(rows["loss"]),
+            "data_ids": list(rows["data_id"]), "loss": card[0],
+            "loss_rel": loss_rel, "loss_bound": 1e-5, "grad_max": gmax,
+            "grad_resid_rel": grad_rel, "grad_bound": 5e-3,
+            "stats_resid_rel": stats_rel, "stats_bound": 1e-5,
+            "first_step_s": {"card": card[3], "cpu": host[3]},
+            "step_ms": [s * 1e3 for s in prof["step_s"]],
+            "epoch_s": epoch_s, "peak_bytes": peaks}
 
 
 def prod_fixture(shape, n, seed):
@@ -1140,7 +1385,13 @@ def main():
     with tempfile.TemporaryDirectory() as work:
         emit(run_serve(vol, stack, loop_labels, work))
 
-    # 13. each kernel on its path's own inputs
+    # 13. several cards: frame parallelism, a two-process pod, data-
+    # parallel training; each path's launch counts set to 0 just before it
+    with tempfile.TemporaryDirectory() as work:
+        for line in run_multi(work, kwargs):
+            emit(line)
+
+    # 14. each kernel on its path's own inputs
     kernels = []
     for name, mod, flood, plain, calls, path_launches, line, in_bytes in (
             ("affinity_flood", fk, fk.affinity_flood,

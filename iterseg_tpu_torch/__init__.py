@@ -14,6 +14,11 @@ Entry points run on CUDA unless the caller passes a CPU device
 ``run_experiment``), the widgets' headless twins and the CLI
 (``python -m iterseg_tpu_torch``, ``--device cpu`` for the CPU).
 
+Several devices and hosts live in ``iterseg_tpu_torch.parallel`` (``mesh``:
+the data-parallel train step and chunk-batch inference; ``multihost``:
+frames round-robined over processes on ``torch.distributed``), which the
+top level does not re-export, as in JAX.
+
 Every name of the JAX package's ``__all__`` is exported here, with
 ``generate_ground_truth`` as the same alias of ``ground_truth_from_ROI``
 (the reference's ``__all__`` names a function it does not define).

@@ -7,15 +7,18 @@ thin argparse layer over the port's headless API:
   ``_dock_widgets.segment_data``, _dock_widgets.py:544)
 - ``train``    → ``widgets._train_from_viewer`` (_dock_widgets.py:82)
 - ``assess``   → ``widgets._assess_segmentation`` (_dock_widgets.py:791)
+- ``pod-segment`` → ``parallel.multihost.multihost_segment_zarr`` (+
+  ``multihost_accuracy_metrics`` with ``--gt``)
 - ``serve``    → ``engine.serve.SegmentationServer`` + ``watch``
 - ``convert``  → ``models.convert`` (``.npz`` and ``.pt``/``.pth``)
 - ``info``     → environment / registry report
 
 One option is the port's own: ``--device``, before the subcommand, names
-the torch device that ``segment``, ``train`` and ``serve`` run on (default:
-CUDA, an error without a card; ``--device cpu`` runs on the CPU). What the
-port has not ported yet raises and exits non-zero: ``pod-segment`` and
-several cards (ROADMAP slice 7).
+the torch device that ``segment``, ``train``, ``serve`` and ``pod-segment``
+run on (default: CUDA, an error without a card; ``--device cpu`` runs on
+the CPU). ``pod-segment`` without ``--device`` puts process ``p`` on
+``cuda:{p % device_count}``; ``--local-devices`` (``pod-segment`` and
+``serve``) round-robins frames over every card of the host instead.
 
 Every command prints the paths it wrote so shell pipelines can consume
 them. All heavy compute runs through the exact same code paths as the
@@ -71,12 +74,16 @@ def _devices(args):
 
 
 def _local_devices():
-    """Every CUDA card of this host (more than one raises further on, until
-    ROADMAP slice 7; none raises in ``resolve_device``)."""
+    """Every CUDA card of this host, for ``--local-devices``: a stack's
+    frames round-robin over them. Raises ``RuntimeError`` without a card,
+    as ``resolve_device`` does."""
     import torch
 
+    from .device import resolve_device
+
+    resolve_device(None)
     return [torch.device("cuda", i)
-            for i in range(max(torch.cuda.device_count(), 1))]
+            for i in range(torch.cuda.device_count())]
 
 
 def _cmd_segment(args):
@@ -171,10 +178,62 @@ def _cmd_assess(args):
     return 0
 
 
+def _pod_devices(args, process_id):
+    """This process's devices: every card with ``--local-devices``, the
+    ``--device`` when given, else ``cuda:{process_id % device_count}`` (so
+    the processes of one host spread over its cards)."""
+    import torch
+
+    from .device import resolve_device
+
+    if args.local_devices:
+        return _local_devices()
+    if args.device is not None:
+        return [torch.device(args.device)]
+    resolve_device(None)
+    return [torch.device("cuda", process_id % torch.cuda.device_count())]
+
+
 def _cmd_pod_segment(args):
-    raise NotImplementedError(
-        "pod-segment (multi-host SPMD segmentation) arrives with ROADMAP "
-        "slice 7 (multi-GPU and multi-host); the port has no parallel/ yet")
+    from .parallel import multihost as mh
+
+    if args.coordinator is not None:
+        mh.init_multihost(args.coordinator,
+                          num_processes=args.num_processes,
+                          process_id=args.process_id,
+                          run_nonce=args.run_nonce)
+    elif args.run_nonce is not None:
+        mh.set_run_nonce(args.run_nonce)
+    host_id, _ = mh._resolve_host(args.process_id, args.num_processes)
+    done = mh.multihost_segment_zarr(
+        args.input, args.output, segmenter=args.segmenter,
+        network_or_config_file=args.network,
+        chunk_size=args.chunk_size, margin=args.margin,
+        host_id=args.process_id, n_hosts=args.num_processes,
+        devices=_pod_devices(args, host_id),
+    )
+    print(f"host frames: {done}")
+    if args.gt is not None:
+        from .core.chunks import get_slices_from_chunks
+        from .io.zarr_io import open_zarr
+
+        # zarr-backed on purpose: the metrics shard reads only this
+        # host's chunks
+        gt = open_zarr(args.gt)
+        seg = open_zarr(args.output)
+        metrics_dir = args.metrics_dir or os.path.dirname(
+            str(args.output).rstrip("/")
+        )
+        slices = get_slices_from_chunks(seg.shape, args.chunk_size,
+                                        args.margin)
+        mh.multihost_accuracy_metrics(
+            slices, gt, seg, "pod", args.prefix, out_path=metrics_dir,
+            exclude_chunks=args.exclude_chunks_less_than,
+            host_id=args.process_id, n_hosts=args.num_processes,
+        )
+        print(os.path.join(metrics_dir, f"{args.prefix}_pod_scores.csv"))
+    print(args.output)
+    return 0
 
 
 def _cmd_serve(args):
@@ -324,9 +383,9 @@ def build_parser():
     _add_common_io(p)
     p.set_defaults(fn=_cmd_assess)
 
-    p = sub.add_parser("pod-segment", help="pod-scale SPMD segmentation "
-                       "(raises until ROADMAP slice 7: multi-GPU and "
-                       "multi-host)")
+    p = sub.add_parser("pod-segment", help="multi-host segmentation of a "
+                       "shared zarr: frames round-robin over processes "
+                       "joined by torch.distributed (gloo)")
     p.add_argument("--input", required=True, help="shared tzyx zarr store")
     p.add_argument("--output", required=True,
                    help="shared output zarr (host 0 creates it, "
@@ -335,8 +394,8 @@ def build_parser():
     p.add_argument("--network", default=None,
                    help=".npz/.pt checkpoint or segmenter config JSON")
     p.add_argument("--coordinator", default=None, metavar="HOST:PORT",
-                   help="process 0's address for the distributed "
-                        "runtime; omit on a single host (or shard via "
+                   help="process 0's address for the gloo process "
+                        "group; omit on a single host (or shard via "
                         "--process-id/--num-processes over a shared "
                         "filesystem)")
     p.add_argument("--num-processes", type=int, default=None)
@@ -346,7 +405,8 @@ def build_parser():
                         "scopes the file-based metric exchange")
     p.add_argument("--local-devices", action="store_true",
                    help="round-robin this host's frame shard across all "
-                        "its cards")
+                        "its cards (default: one card a process, "
+                        "cuda:{process_id %% device_count}, or --device)")
     p.add_argument("--gt", default=None,
                    help="optional ground-truth zarr: pod-sharded "
                         "VI/AP/count metrics after segmentation")
@@ -372,8 +432,7 @@ def build_parser():
     p.add_argument("--max-volumes", type=int, default=None,
                    help="stop after serving this many volumes")
     p.add_argument("--local-devices", action="store_true",
-                   help="round-robin 4D frames across all local cards "
-                        "(more than one raises until ROADMAP slice 7)")
+                   help="round-robin 4D frames across all local cards")
     p.add_argument("--pyramid-levels", type=int, default=0,
                    help="append N downsampled NGFF levels per served "
                         "store (level 0 stays the exact labels)")

@@ -46,6 +46,7 @@ verified exact image flood on ``-d²``.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 
 import numpy as np
@@ -77,21 +78,32 @@ def reset_flood_fallbacks():
     _flood_fallbacks = 0
 
 
+def _on(device):
+    """The CUDA device guard of ``device`` (a no-op for the CPU and for
+    ``None``): work dispatched under it, events and the flood kernels'
+    launches included, runs on that card whichever card is current."""
+    if device is not None and torch.device(device).type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
+
+
 class _HostCopy:
     """A device tensor on its way to host memory: a non-blocking copy into
-    pinned memory on the current stream, fenced by an event. ``get()``
-    waits for that event only, so a thread may wait on it while later work
-    runs on the stream. ``tensor`` is the device tensor. CPU tensors pass
-    through."""
+    pinned memory on the tensor's card's current stream, fenced by an
+    event. ``get()`` waits for that event only, so a thread may wait on it
+    while later work runs on the stream. ``tensor`` is the device tensor.
+    CPU tensors pass through."""
 
     def __init__(self, t: torch.Tensor):
         self.tensor = t
         self._event = None
         if t.device.type == "cuda":
-            self._host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-            self._host.copy_(t, non_blocking=True)
-            self._event = torch.cuda.Event()
-            self._event.record()
+            with torch.cuda.device(t.device):
+                self._host = torch.empty(t.shape, dtype=t.dtype,
+                                         pin_memory=True)
+                self._host.copy_(t, non_blocking=True)
+                self._event = torch.cuda.Event()
+                self._event.record()
         else:
             self._host = t
 
@@ -208,8 +220,11 @@ def _drive_stack(stack, output_labels, skip_labelled, devices,
                  dispatch_one, finalize_one):
     """Pipelined 4D drive: frame t+1's device work is dispatched before
     frame t's host finalisation, with warm-restart skipping of labelled
-    frames. ``dispatch_one(t, device)`` returns a job, ``finalize_one(job)``
-    the frame's labels."""
+    frames. ``devices``: frames round-robin over the list (frame
+    parallelism), with the dispatch lookahead widened to its length so
+    every card has a frame queued; ``None`` is the pipeline's own device.
+    ``dispatch_one(t, device)`` returns a job, ``finalize_one(job)`` the
+    frame's labels; both run under the frame's device guard."""
     todo = [t for t in range(stack.shape[0])
             if not (skip_labelled and np.any(np.asarray(output_labels[t])))]
     lookahead = 1 if devices is None else len(devices)
@@ -220,10 +235,12 @@ def _drive_stack(stack, output_labels, skip_labelled, devices,
             t = todo[next_dispatch]
             device = (None if devices is None
                       else devices[next_dispatch % len(devices)])
-            pending.append((t, dispatch_one(t, device)))
+            with _on(device):
+                pending.append((t, device, dispatch_one(t, device)))
             next_dispatch += 1
-        jt, job = pending.pop(0)
-        output_labels[jt] = finalize_one(job)
+        jt, device, job = pending.pop(0)
+        with _on(device):
+            output_labels[jt] = finalize_one(job)
         yield jt
 
 
@@ -477,11 +494,14 @@ class AffinityPipeline:
 
         device = self.device if device is None else torch.device(device)
         zyx = tuple(int(s) for s in x.shape)
+        # the microbatch is resolved on the pipeline's own device, so a
+        # frame's forward (hence its labels) does not depend on the card
+        # that took it
         program = get_feature_program(
             self.model, zyx, self.chunk_size, self.margin,
             microbatch=self.microbatch,
             normalize=self.normalize if normalize is None else normalize,
-            device=device,
+            device=self.device,
         )
         out = program(x, device=device)
         aff_pad, cent_smooth, otsu = _prep_feature_maps(out[:3], out[4],
@@ -634,14 +654,10 @@ class AffinityPipeline:
         """Pipelined 4D (t, z, y, x) segmentation: frame t+1's device work is
         queued before frame t's host flood runs. Writes ``output_labels[t]``
         and yields t (warm restart when ``skip_labelled``). ``devices``: a
-        list of one ``torch.device`` (frame parallelism over several GPUs
-        is ROADMAP slice 7)."""
+        list of ``torch.device``s the frames round-robin over (frame
+        parallelism); each device builds its U-Net replica at its first
+        frame, and the labels are those of the one-device call."""
         from ..core.volume import restore_labels
-
-        if devices is not None and len(devices) > 1:
-            raise NotImplementedError(
-                "segment_stack over several GPUs arrives with ROADMAP "
-                "slice 7 (multi-GPU); pass one device")
 
         def dispatch_one(t, device):
             raw = np.asarray(stack[t])
@@ -661,6 +677,10 @@ class AffinityPipeline:
     def segment(self, volume, out=None, profile=None):
         """Instance labels (int32, ``volume.shape``) for one prepared zyx
         volume. Integer volumes upload in their source dtype."""
+        with _on(self.device):
+            return self._segment(volume, out, profile)
+
+    def _segment(self, volume, out=None, profile=None):
         volume = np.asarray(volume)
         if (np.issubdtype(volume.dtype, np.integer)
                 and volume.dtype.itemsize <= 4):
@@ -876,6 +896,10 @@ class DoGPipeline:
         reference's ``current_output`` contract for the DoG path).
         ``normalize``: run the ``/ max`` on the device (integer volumes
         then upload in their source dtype)."""
+        with _on(self.device):
+            return self._segment(volume, out, profile, normalize)
+
+    def _segment(self, volume, out=None, profile=None, normalize=False):
         volume = np.asarray(volume)
         t0 = time.perf_counter()
         outs = self._device_outputs(volume, normalize=normalize)
@@ -888,13 +912,10 @@ class DoGPipeline:
         """Pipelined 4D (t, z, y, x) DoG segmentation: frame t+1's device
         half is queued before frame t's host half runs. Writes cropped
         labels into ``output_labels[t]`` and yields t (warm restart when
-        ``skip_labelled``). ``devices``: a list of one ``torch.device``."""
+        ``skip_labelled``). ``devices``: a list of ``torch.device``s the
+        frames round-robin over (frame parallelism), the labels those of
+        the one-device call."""
         from ..core.volume import restore_labels
-
-        if devices is not None and len(devices) > 1:
-            raise NotImplementedError(
-                "segment_stack over several GPUs arrives with ROADMAP "
-                "slice 7 (multi-GPU); pass one device")
 
         def dispatch_one(t, device):
             raw = np.asarray(stack[t])

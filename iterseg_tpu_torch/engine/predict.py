@@ -25,6 +25,8 @@ __all__ = [
     "UNetModel",
     "load_unet",
     "predict_volume",
+    "predict_chunk_feature_map",
+    "get_device",
     "make_chunks",
     "process_chunks",
 ]
@@ -107,6 +109,13 @@ def load_unet(u_state_fn=None, compute_dtype=torch.float32) -> UNetModel:
                      compute_dtype=compute_dtype)
 
 
+def get_device() -> torch.device:
+    """The device the engine runs on by default (parity shim for
+    ``predict.py:130-135``): ``resolve_device(None)``, CUDA, raising when
+    no card is visible."""
+    return resolve_device(None)
+
+
 def _memory_budget(device) -> int:
     device = torch.device(device) if device is not None else None
     if device is not None and device.type == "cuda":
@@ -168,3 +177,25 @@ def predict_volume(
         output_volume[...] = out
         return output_volume
     return out
+
+
+def predict_chunk_feature_map(input_volume, sl, unet=False,
+                              default_only_mask=False, **kwargs):
+    """Per-chunk forward for the generic ``process_chunks`` driver (parity:
+    iterseg ``predict.py:100-126``): ``sl`` is a chunk's (frame, z, y, x)
+    slice; returns the (1, C, z, y, x) numpy features of ``unet`` (an
+    ``UNetModel``, or any callable of an NCZYX batch) on that chunk
+    (``process_chunks`` drops the leading axis), and with
+    ``default_only_mask`` its entry 3 along the first axis, as JAX does.
+    ``device`` in ``kwargs`` names where an ``UNetModel`` runs (CUDA
+    unless given)."""
+    assert unet is not False, "Please ensure a unet is loaded and supplied"
+    sl = sl[1:]
+    x = np.asarray(input_volume[sl], dtype=np.float32)[None, None]
+    if isinstance(unet, UNetModel):
+        predicted = unet(x, device=kwargs.get("device")).cpu().numpy()
+    else:
+        predicted = np.asarray(unet(x))
+    if default_only_mask:
+        predicted = predicted[3, ...]
+    return predicted

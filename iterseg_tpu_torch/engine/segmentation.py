@@ -8,8 +8,9 @@ in the reference — plus ``segmentation_wrapper`` (label store allocation,
 the frame loop, the optional background worker), ``segmentation_loop``
 with its warm restart (labelled frames of a 4D store are skipped) and
 ``segment_single_volume``. Signatures are the JAX package's; the
-keyword-only ``devices`` takes a list of one ``torch.device`` (``None``
-means CUDA).
+keyword-only ``devices`` takes a list of ``torch.device``s (``None`` means
+CUDA): the frames of a 4D stack round-robin over it (frame parallelism,
+labels equal to one device's), and a 3D volume runs on its first device.
 """
 from __future__ import annotations
 
@@ -86,19 +87,23 @@ def _config_or(config, key, default):
     return default if value is None else value
 
 
-def _single_device(devices):
-    """The one device a run uses: ``None`` is CUDA; a list holds exactly
-    one device until multi-GPU frame parallelism (ROADMAP slice 7)."""
+def _devices(devices):
+    """The devices a run uses: ``None`` is ``[cuda]``; a list is resolved
+    entry by entry (several entries may name one device)."""
     from ..device import resolve_device
 
     if devices is None:
-        return resolve_device(None)
-    devices = list(devices)
-    if len(devices) != 1:
-        raise NotImplementedError(
-            f"devices={devices}: several GPUs arrive with ROADMAP slice 7 "
-            "(multi-GPU); pass a list of one torch.device")
-    return resolve_device(devices[0])
+        return [resolve_device(None)]
+    devices = [resolve_device(d) for d in devices]
+    if not devices:
+        raise ValueError("devices must name at least one device")
+    return devices
+
+
+def _first_device(devices):
+    """Where one volume runs: the first of ``devices`` (JAX runs a 3D
+    volume on its default device whatever the list)."""
+    return _devices(devices)[0]
 
 
 def dog_image(input_vol, sigma_min, sigma_max, device=None):
@@ -223,7 +228,7 @@ def affinity_watershed_for_chunks(
     ``segment_output_image`` path (``use_device_pipeline=False``)."""
     if unet is None:
         raise ValueError("unet must not be None")
-    device = _single_device(devices)
+    device = _first_device(devices)
     if _affinity_pipeline_ready(unet, output_volume, use_device_pipeline):
         if pipeline_cache is None:
             pipeline_cache = {}
@@ -277,8 +282,9 @@ def affinity_unet_watershed(
 ):
     """Segment a 3D volume or 4D stack with the affinity U-Net watershed.
 
-    The JAX package's signature. Keyword-only: ``devices`` — a list of one
-    ``torch.device`` (``None``: CUDA); ``compute_dtype`` — e.g.
+    The JAX package's signature. Keyword-only: ``devices`` — a list of
+    ``torch.device``s a stack's frames round-robin over (``None``: CUDA);
+    ``compute_dtype`` — e.g.
     ``"bfloat16"``; ``device_flood`` — ``"pallas"`` (the CUDA kernel) or
     ``"xla"`` (the torch recurrence) floods on the device, approximately,
     ``"exact"`` runs the verified flood (bit-equal labels), ``True`` picks
@@ -389,7 +395,7 @@ def dog_blob_watershed_for_chunks(
     bit-identical to the host path (``use_device_pipeline=False``).
     ``flood_telemetry`` is accepted for config uniformity and ignored, as
     in the JAX package (there is no image-flood certificate)."""
-    device = _single_device(devices)
+    device = _first_device(devices)
     if use_device_pipeline:
         if pipeline_cache is None:
             pipeline_cache = {}
@@ -436,7 +442,8 @@ def dog_blob_watershed(
 ):
     """Classical DoG blob segmentation (no network) of a 3D volume or 4D
     stack. The JAX package's signature. Keyword-only: ``devices`` — a list
-    of one ``torch.device`` (``None``: CUDA); ``device_flood`` — ``"pallas"``
+    of ``torch.device``s a stack's frames round-robin over (``None``:
+    CUDA); ``device_flood`` — ``"pallas"``
     (the CUDA image kernel) or ``"xla"`` floods on the device
     (approximate, exact host fallback on non-convergence), ``"exact"`` runs
     the verified image flood (bit-equal labels), ``True`` picks by the
@@ -478,7 +485,7 @@ def unet_mask_for_chunks(input_volume, current_output, chunk_size, margin,
     segmentation.py:248-296, made functional)."""
     from ..ops.threshold import threshold_otsu_np
 
-    device = _single_device(devices)
+    device = _first_device(devices)
     if output_volume.shape[1:] != input_volume.shape:
         # zero-slice removal shrank the frame
         output_volume = np.zeros(
@@ -507,7 +514,7 @@ def otsu_mask_for_chunks(input_volume, current_output, chunk_size, margin,
     from ..ops.threshold import threshold_otsu_np
 
     smoothed = _smoothed_np(input_volume, gaus_sigma,
-                            _single_device(devices))
+                            _first_device(devices))
     mask = input_volume > threshold_otsu_np(smoothed)
     current_output[1:-1, 1:-1, 1:-1] = mask
 
@@ -581,7 +588,7 @@ def blob_watershed_for_chunks(
     = ``img > otsu(gaussian(img, gaus_sigma))``. Chunk grid ignored."""
     from ..ops.threshold import threshold_otsu_np
 
-    device = _single_device(devices)
+    device = _first_device(devices)
     markers_blobs = blob_log(
         input_volume, min_sigma=min_sigma, max_sigma=max_sigma,
         num_sigma=int(num_sigma), threshold=threshold, device=device,
@@ -672,7 +679,7 @@ def segmentation_wrapper(
     )
     if config is None:
         config = {}
-    config["devices"] = [_single_device(devices)]
+    config["devices"] = _devices(devices)
 
     save_path = None
     if save_dir is not None and not debug:
@@ -770,13 +777,15 @@ def segmentation_loop(viewer, data, chunk_size, margin, output_labels,
                                      config.get("use_device_pipeline", True))
     ):
         # pipelined 4D fast path: frame t+1's device work overlaps frame
-        # t's host flood (same labels as the per-frame path)
-        device = _single_device(config.get("devices"))
+        # t's host flood, frames round-robin over ``devices`` (the labels
+        # of the per-frame path on one device)
+        devices = _devices(config.get("devices"))
         pipe = _pipeline(config["pipeline_cache"], config["unet"],
                          chunk_size, margin,
                          config.get("device_flood") or False,
-                         config.get("flood_telemetry", False), device=device)
-        yield from pipe.segment_stack(data, output_labels)
+                         config.get("flood_telemetry", False),
+                         device=devices[0])
+        yield from pipe.segment_stack(data, output_labels, devices=devices)
         return
     if (
         processing_function is dog_blob_watershed_for_chunks
@@ -786,11 +795,12 @@ def segmentation_loop(viewer, data, chunk_size, margin, output_labels,
     ):
         # pipelined 4D DoG fast path: frame t+1's device half overlaps
         # frame t's host blob pruning and flood (same labels as per frame)
+        devices = _devices(config.get("devices"))
         pipe = _dog_pipeline(config["pipeline_cache"], config["min_sigma"],
                              config["max_sigma"], config["threshold"],
                              config.get("device_flood") or False,
-                             _single_device(config.get("devices")))
-        yield from pipe.segment_stack(data, output_labels)
+                             devices[0])
+        yield from pipe.segment_stack(data, output_labels, devices=devices)
         return
     for t in range(data.shape[0]):
         if np.any(np.asarray(output_labels[t])):

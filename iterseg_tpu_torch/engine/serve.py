@@ -35,9 +35,9 @@ class SegmentationServer:
 
     ``segmenter``/``network_or_config_file`` follow ``segment_data``'s
     contract (checkpoint path, segmenter config JSON, or None for the
-    bundled default U-Net). ``devices``: a list of one ``torch.device``
-    (``None``: CUDA); several devices raise ``NotImplementedError`` until
-    ROADMAP slice 7 (multi-GPU).
+    bundled default U-Net). ``devices``: a list of ``torch.device``s
+    (``None``: CUDA); a 4D volume's frames round-robin over them, and a 3D
+    volume runs on the first.
     """
 
     def __init__(self, segmenter="affinity-unet-watershed",
@@ -64,7 +64,7 @@ class SegmentationServer:
         self.network_or_config_file = network_or_config_file
         self.chunk_size = tuple(chunk_size)
         self.margin = tuple(margin)
-        self.devices = [seg._single_device(devices)]
+        self.devices = seg._devices(devices)
         self._fn, self._prep = pairs[segmenter]
         self._config = None
 

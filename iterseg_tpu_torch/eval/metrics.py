@@ -368,8 +368,8 @@ def get_accuracy_metrics(
 def _collect_chunk_scores(slices, gt_data, model_result, VI=True, AP=True,
                           ND=True, exclude_chunks=10):
     """The per-chunk scoring loop of ``get_accuracy_metrics``: returns the
-    raw column-list dict (the JAX package's multi-host path scores a shard
-    of the chunk list with it; that path arrives with ROADMAP slice 7)."""
+    raw column-list dict (``parallel.multihost_accuracy_metrics`` scores
+    each host's share of the chunk list with it)."""
     scores = {
         "VI: GT | Output": [],
         "VI: Output | GT": [],

@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import json
 import os
+import uuid
 import zlib
 
 import numpy as np
@@ -65,6 +66,16 @@ def _decompress(buf, compressor):
             "fallback only handles raw/zlib/gzip chunks"
         )
     raise ValueError(f"zarr_mini cannot read compressor {cid!r}")
+
+
+def _write_atomic(path, buf):
+    """Write ``buf`` to ``path`` through a temporary name of this writer's
+    own (so two processes, even on two hosts, never share one), renamed
+    into place: a reader sees the old file or the whole new one."""
+    tmp = f"{path}.{uuid.uuid4().hex}.tmp"
+    with open(tmp, "wb") as f:
+        f.write(buf)
+    os.replace(tmp, path)
 
 
 class MiniZarrArray:
@@ -154,10 +165,7 @@ class MiniZarrArray:
         p = self._chunk_path(idx)
         buf = _compress(np.ascontiguousarray(data).tobytes(),
                         self._compressor)
-        tmp = p + ".tmp"
-        with open(tmp, "wb") as f:
-            f.write(buf)
-        os.replace(tmp, p)
+        _write_atomic(p, buf)
 
     # -- reads / writes -------------------------------------------------
     def __getitem__(self, sl):
@@ -245,8 +253,7 @@ def create(path, shape, chunks=None, dtype=np.uint32, fill_value=0,
         "filters": None,
         "dimension_separator": ".",
     }
-    with open(os.path.join(path, ".zarray"), "w") as f:
-        json.dump(meta, f)
+    _write_atomic(os.path.join(path, ".zarray"), json.dumps(meta).encode())
     return MiniZarrArray(path, meta)
 
 

@@ -14,6 +14,9 @@ unchanged. Invariants kept exactly:
   output, no reduction);
 - the decoder crops ``[..., :-1, :-1]`` and ``[..., 1:-1, 1:-1]``;
 - any number of decoder forks sharing one encoder;
+- one forward, ``UNet.forward_shards``, over a batch split into shards,
+  with the leaf layers applied through a function the caller may give
+  (``parallel.mesh`` runs data-parallel training through it);
 - eval BatchNorm folded to ``x * scale + shift`` exactly as the JAX model
   computes it; in train mode (``net.train()``) ``nn.BatchNorm3d``'s batch
   statistics: the biased variance normalises, and the running stats move
@@ -39,7 +42,7 @@ ENCODER_CHANNELS = (32, 64, 128, 256, 256)
 DECODER_IN_OUT = ((512, 128), (256, 64), (128, 32))
 BN_EPS = 1e-5
 
-__all__ = ["UNetSpec", "ConvModule", "UNet"]
+__all__ = ["UNetSpec", "ConvModule", "UNet", "forked_unet_spec"]
 
 
 class UNetSpec:
@@ -97,6 +100,38 @@ def _bn_eval(x, bn: nn.BatchNorm3d):
     return x * scale + shift.reshape(1, -1, 1, 1, 1)
 
 
+class BatchNorm(nn.BatchNorm3d):
+    """``nn.BatchNorm3d`` whose eval forward is ``_bn_eval``; in train mode
+    it takes the batch statistics as ``nn.BatchNorm3d`` does."""
+
+    def forward(self, x):
+        return super().forward(x) if self.training else _bn_eval(x, self)
+
+
+class Upsample(nn.ConvTranspose3d):
+    """Depthwise ConvTranspose3d with kernel == stride, evaluated as the
+    broadcast product of the JAX model:
+    out[n,c,z*fz+dz,y*fy+dy,x*fx+dx] = x[n,c,z,y,x]*w[c,0,dz,dy,dx] + b."""
+
+    def __init__(self, channels, factors):
+        super().__init__(channels, channels, factors, stride=factors,
+                         groups=channels)
+
+    def forward(self, x):
+        n, c, z, y, xx = x.shape
+        fz, fy, fx = self.stride
+        wk = self.weight.reshape(1, c, 1, fz, 1, fy, 1, fx).to(x.dtype)
+        out = (x.reshape(n, c, z, 1, y, 1, xx, 1) * wk).reshape(
+            n, c, z * fz, y * fy, xx * fx)
+        return out + self.bias.reshape(1, -1, 1, 1, 1).to(x.dtype)
+
+
+def each_shard(m: nn.Module, xs):
+    """The default layer function of ``forward_shards``: the leaf module
+    ``m`` on each shard."""
+    return [m(x) for x in xs]
+
+
 class ConvModule(nn.Module):
     """(conv3d → BN → ReLU) × 2 with a configurable final activation."""
 
@@ -104,28 +139,20 @@ class ConvModule(nn.Module):
         super().__init__()
         self.conv0 = nn.Conv3d(cin, cout, 3, 1, 1)
         self.conv1 = nn.Conv3d(cout, cout, 3, 1, 1)
-        self.batch0 = nn.BatchNorm3d(cout)
-        self.batch1 = nn.BatchNorm3d(cout)
+        self.batch0 = BatchNorm(cout)
+        self.batch1 = BatchNorm(cout)
         self.final = final
 
-    def _bn(self, x, bn: nn.BatchNorm3d):
-        return bn(x) if self.training else _bn_eval(x, bn)
-
     def forward(self, x):
-        x = torch.relu(self._bn(self.conv0(x), self.batch0))
-        x = self._bn(self.conv1(x), self.batch1)
-        return _final_activation(x, self.final)
+        return self.forward_shards([x])[0]
 
-
-def _upsample(x, up: nn.ConvTranspose3d, factors):
-    """Depthwise ConvTranspose3d with kernel == stride == factors:
-    out[n,c,z*fz+dz,y*fy+dy,x*fx+dx] = x[n,c,z,y,x]*w[c,0,dz,dy,dx] + b."""
-    n, c, z, y, xx = x.shape
-    fz, fy, fx = factors
-    wk = up.weight.reshape(1, c, 1, fz, 1, fy, 1, fx).to(x.dtype)
-    out = (x.reshape(n, c, z, 1, y, 1, xx, 1) * wk).reshape(
-        n, c, z * fz, y * fy, xx * fx)
-    return out + up.bias.reshape(1, -1, 1, 1, 1).to(x.dtype)
+    def forward_shards(self, xs, layer=each_shard):
+        """The block over a batch split into shards (see
+        ``UNet.forward_shards``)."""
+        xs = [torch.relu(x) for x in layer(self.batch0,
+                                           layer(self.conv0, xs))]
+        xs = layer(self.batch1, layer(self.conv1, xs))
+        return [_final_activation(x, self.final) for x in xs]
 
 
 class UNet(nn.Module):
@@ -148,8 +175,7 @@ class UNet(nn.Module):
         for name, c, k in (("up0", 256, NEW_DOWN), ("up1", 128, DOWN_FACTORS),
                            ("up2", 64, DOWN_FACTORS),
                            ("up3", 32, DOWN_FACTORS)):
-            setattr(self, name, nn.ConvTranspose3d(c, c, k, stride=k,
-                                                   groups=c))
+            setattr(self, name, Upsample(c, k))
         self.eval()
 
     def init_weights(self, seed: int = 0) -> "UNet":
@@ -179,26 +205,50 @@ class UNet(nn.Module):
     def _pool(x, factors):
         return F.max_pool3d(x, factors, factors, padding=(0, 1, 1))
 
-    def encode(self, x):
-        c0 = self.c0(x)
-        c1 = self.c1(self._pool(c0, DOWN_FACTORS))
-        c2 = self.c2(self._pool(c1, DOWN_FACTORS))
-        c3 = self.c3(self._pool(c2, DOWN_FACTORS))
-        x = self.c4(self._pool(c3, NEW_DOWN))
-        return x, c0, c1, c2, c3
-
-    def decode(self, x, c0, c1, c2, c3, i=0):
-        x = _upsample(x, self.up0, NEW_DOWN)[:, :, :, :-1, :-1]
-        x = getattr(self, f"c5_{i}")(torch.cat([x, c3], 1))
-        x = _upsample(x, self.up1, DOWN_FACTORS)[:, :, :, :-1, :-1]
-        x = getattr(self, f"c6_{i}")(torch.cat([x, c2], 1))
-        x = _upsample(x, self.up2, DOWN_FACTORS)[:, :, :, :-1, :-1]
-        x = getattr(self, f"c7_{i}")(torch.cat([x, c1], 1))
-        x = _upsample(x, self.up3, DOWN_FACTORS)[:, :, :, 1:-1, 1:-1]
-        return getattr(self, f"c8_{i}")(torch.cat([x, c0], 1))
-
     def forward(self, x):
-        enc, c0, c1, c2, c3 = self.encode(x)
-        outs = [self.decode(enc, c0, c1, c2, c3, i)
-                for i in range(len(self.spec.out_channels))]
-        return outs[0] if len(outs) == 1 else torch.cat(outs, 1)
+        return self.forward_shards([x])[0]
+
+    def forward_shards(self, xs, layer=each_shard):
+        """The forward of a batch split into shards (a list of NCZYX
+        tensors; one output each), layer by layer across the shards.
+        ``layer(m, xs)`` applies each leaf module ``m`` (a ``Conv3d``, a
+        ``BatchNorm`` or an ``Upsample``) to every shard: by default the
+        module itself on each (``each_shard``); ``parallel.mesh`` passes
+        one that gives each shard its device's parameters and takes the
+        BatchNorm statistics over all the shards."""
+        def block(m, xs):
+            return m.forward_shards(xs, layer)
+
+        def pool(xs, factors):
+            return [self._pool(x, factors) for x in xs]
+
+        def up_cat(m, xs, crop, skips):
+            return [torch.cat([x[crop], s], 1)
+                    for x, s in zip(layer(m, xs), skips)]
+
+        inner = (Ellipsis, slice(None, -1), slice(None, -1))
+        outer = (Ellipsis, slice(1, -1), slice(1, -1))
+        c0 = block(self.c0, xs)
+        c1 = block(self.c1, pool(c0, DOWN_FACTORS))
+        c2 = block(self.c2, pool(c1, DOWN_FACTORS))
+        c3 = block(self.c3, pool(c2, DOWN_FACTORS))
+        enc = block(self.c4, pool(c3, NEW_DOWN))
+        forks = []
+        for i in range(len(self.spec.out_channels)):
+            x = block(getattr(self, f"c5_{i}"),
+                      up_cat(self.up0, enc, inner, c3))
+            x = block(getattr(self, f"c6_{i}"),
+                      up_cat(self.up1, x, inner, c2))
+            x = block(getattr(self, f"c7_{i}"),
+                      up_cat(self.up2, x, inner, c1))
+            forks.append(block(getattr(self, f"c8_{i}"),
+                               up_cat(self.up3, x, outer, c0)))
+        if len(forks) == 1:
+            return forks[0]
+        return [torch.cat(parts, 1) for parts in zip(*forks)]
+
+
+def forked_unet_spec(in_channels=1, fork_channels=(8, 2)):
+    """The spec of a ForkedUNet: one encoder, a decoder per entry of
+    ``fork_channels`` (iterseg ``unet.py:371-395``)."""
+    return UNetSpec(in_channels=in_channels, out_channels=tuple(fork_channels))

@@ -63,6 +63,16 @@ def get_lib():
             ctypes.c_int64,
             ctypes.c_int64,
         ]
+        lib.band_filter_cc6.restype = None
+        lib.band_filter_cc6.argtypes = [
+            ctypes.POINTER(ctypes.c_uint8),
+            ctypes.POINTER(ctypes.c_int32),
+            ctypes.c_int64,
+            ctypes.c_int64,
+            ctypes.c_int64,
+            ctypes.c_int64,
+            ctypes.c_int64,
+        ]
         lib.band_filter_runs.restype = None
         lib.band_filter_runs.argtypes = [
             ctypes.POINTER(ctypes.c_uint8),
@@ -253,7 +263,8 @@ def band_filter_cc6(mask, min_area, max_area):
 
     Returns the filtered boolean mask (components with size outside
     [min_area, max_area) removed), by the run-based union-find kernel
-    (``band_filter_runs``).
+    (``band_filter_runs``); the per-voxel BFS version
+    (``band_filter_bfs``) is kept as its slow oracle.
 
     Aliasing contract: when ``mask`` is already a C-contiguous uint8
     array it is filtered IN PLACE and the returned bool array is a view
@@ -274,4 +285,23 @@ def band_filter_cc6(mask, min_area, max_area):
         ctypes.c_int64(int(max_area)),
     )
     # uint8 0/1 reinterpreted as bool: no 17 MB copy
+    return m.view(bool)
+
+
+def band_filter_bfs(mask, min_area, max_area):
+    """Per-voxel BFS size-band filter: the slow oracle for
+    ``band_filter_cc6`` (identical output). Same aliasing contract."""
+    lib = get_lib()
+    m = np.ascontiguousarray(mask, dtype=np.uint8)
+    assert m.ndim == 3
+    labels = np.zeros(m.shape, dtype=np.int32)
+    lib.band_filter_cc6(
+        _ptr(m, ctypes.c_uint8),
+        _ptr(labels, ctypes.c_int32),
+        ctypes.c_int64(m.shape[0]),
+        ctypes.c_int64(m.shape[1]),
+        ctypes.c_int64(m.shape[2]),
+        ctypes.c_int64(int(min_area)),
+        ctypes.c_int64(int(max_area)),
+    )
     return m.view(bool)

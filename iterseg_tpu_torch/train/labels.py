@@ -34,6 +34,7 @@ from ..ops.filters import gaussian
 
 __all__ = [
     "get_training_labels",
+    "is_binary_channel",
     "nth_affinity",
     "get_affinities",
     "get_centreness",
@@ -89,6 +90,20 @@ def get_training_labels(l, channels=("z-1", "y-1", "x-1", "centreness"),
         labels.append(lab)
     return np.stack(labels, axis=0)
 
+
+
+def is_binary_channel(chan):
+    """True for channels that are {0,1} by construction under this
+    grammar: nth-affinity channels (``z-1`` etc.) and ``mask*``, unless
+    ``-smooth``ed, which makes any channel continuous. ``centreness*``,
+    ``centroid-gauss`` and ``offsets-*`` are continuous."""
+    if chan.endswith("-smooth"):
+        return False
+    if chan.startswith("mask"):
+        return True
+    return (chan[:1] in ("z", "y", "x")
+            and not chan.startswith("offsets-")
+            and re.search(r"\d+", chan) is not None)
 
 def _offset_channel(chan):
     if chan.endswith("z"):

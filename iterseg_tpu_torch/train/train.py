@@ -23,9 +23,15 @@ The step (forward, loss, backward, one or two Adam steps) runs inside
 forward. Each batch is uploaded from pinned host memory without blocking,
 and batch i+1 is read and uploaded while step i runs on the card.
 
+``mesh`` / ``n_devices`` train data-parallel over a device mesh
+(``parallel.mesh.make_sharded_train_step``), after JAX: each step takes
+``data``-many chunks (the tail batch repeat-pads its last chunk), BatchNorm
+takes the statistics of the whole batch, the loss is its global mean, and a
+loss-CSV row names the step's unique chunk ids joined by ``;``. A mesh whose
+``space`` extent is above 1 raises ``NotImplementedError``.
+
 Not ported: the JAX trainer's bit-packed label upload, which exists for a
-TPU host's thin link and gives bit-equal losses by construction; and the
-``mesh`` / ``n_devices`` sharded path (ROADMAP slice 7).
+TPU host's thin link and gives bit-equal losses by construction.
 """
 from __future__ import annotations
 
@@ -86,7 +92,7 @@ def train_unet(
     double_step=True,
     validate_in_train_mode=True,
     seed=0,
-    # sharded training: not in the port yet
+    # data-parallel training over a device mesh
     mesh=None,
     n_devices=None,
     *,
@@ -103,16 +109,23 @@ def train_unet(
     dict that receives ``step_s`` (each train step's wall seconds, from
     its dispatch to the read of its loss, the next batch's load and upload
     included), ``load_s`` (each batch's read and upload dispatch) and
-    ``validation_s`` (each validation pass). ``mesh`` and ``n_devices``
-    other than None or 1 raise ``NotImplementedError``.
+    ``validation_s`` (each validation pass).
+
+    ``mesh`` (a ``parallel.mesh.Mesh``) trains data-parallel over its
+    ``data`` devices (see the module docstring); the master parameters,
+    the optimizer and validation live on its first device, and ``device``
+    is not used. ``n_devices`` builds the mesh with ``make_mesh`` over
+    the first ``n_devices`` CUDA cards, as JAX's does over its devices.
+    ``mesh=None`` keeps the batch-1 loop.
     """
     from ..engine.predict import UNetModel
+    from ..parallel import mesh as mesh_mod
 
-    if mesh is not None or n_devices not in (None, 1):
-        raise NotImplementedError(
-            "sharded training (mesh / n_devices) is not in the port yet: "
-            "ROADMAP slice 7 (multi-GPU)")
-    dev = resolve_device(device)
+    if mesh is None and n_devices is not None:
+        mesh = mesh_mod.make_mesh(int(n_devices))
+    data_devices = (None if mesh is None
+                    else mesh_mod._data_devices(mesh))
+    dev = resolve_device(device if mesh is None else data_devices[0])
     save_output = out_dir is not None
     print("Output will be saved: ", save_output)
     print("Save directory: ", out_dir)
@@ -160,6 +173,39 @@ def train_unet(
         timings["load_s"].append(time.perf_counter() - t0)
         return xb, yb
 
+    if mesh is None:
+        steps = [[i] for i in range(len(x))]
+
+        def load_step(idxs):
+            return load(x[idxs[0]], y[idxs[0]])
+
+        def step_id(idxs):
+            return ids[idxs[0]]
+    else:
+        # dp chunks a step, the tail batch repeat-padded (JAX parity)
+        dp = len(data_devices)
+        steps = []
+        for b0 in range(0, len(x), dp):
+            idxs = list(range(b0, min(b0 + dp, len(x))))
+            steps.append(idxs + [idxs[-1]] * (dp - len(idxs)))
+        sharded_step = mesh_mod.make_sharded_train_step(
+            mesh, net, loss_fn, optimizer, double_step=double_step,
+            chan_log_fn=chan_log_fn, n_channels=len(channels))
+
+        def load_step(idxs):
+            """The step's chunks: x as one (1, 1, z, y, x) shard on each
+            data device, y whole on the first."""
+            t0 = time.perf_counter()
+            xb = [_upload(load_tensor_from_zarr(0, [x[i]])[None, None], d)
+                  for i, d in zip(idxs, data_devices)]
+            yb = _upload(np.stack([load_tensor_from_zarr(0, [y[i]])
+                                   for i in idxs]), dev)
+            timings["load_s"].append(time.perf_counter() - t0)
+            return xb, yb
+
+        def step_id(idxs):
+            return ";".join(ids[i] for i in dict.fromkeys(idxs))
+
     def train_step(xb, yb, e):
         optimizer.zero_grad(set_to_none=True)
         out = net(xb)
@@ -202,28 +248,29 @@ def train_unet(
                 write_log(s, out_dir)
         return v_y_hats
 
+    step_fn = train_step if mesh is None else sharded_step
     v_y_hats = None
     with f32_numerics():
         for e in range(epochs):
             if validate and e == 0:
                 v_y_hats = run_validation(0, 0)
             running_loss = 0.0
-            batch = load(x[0], y[0]) if len(x) else None
-            for si in range(len(x)):
+            batch = load_step(steps[0]) if steps else None
+            for si, idxs in enumerate(steps):
                 t0 = time.perf_counter()
                 xb, yb = batch
-                loss, chan = train_step(xb, yb, e)
-                if si + 1 < len(x):
+                loss, chan = step_fn(xb, yb, e)
+                if si + 1 < len(steps):
                     # double-buffer: read and upload the next batch while
                     # the dispatched step runs on the card
-                    batch = load(x[si + 1], y[si + 1])
+                    batch = load_step(steps[si + 1])
                 loss = float(loss)
                 chan = chan.cpu().numpy()
                 timings["step_s"].append(time.perf_counter() - t0)
                 loss_dict["epoch"].append(e)
                 loss_dict["batch_num"].append(si)
                 loss_dict["loss"].append(loss)
-                loss_dict["data_id"].append(ids[si])
+                loss_dict["data_id"].append(step_id(idxs))
                 for ci, c in enumerate(channels):
                     loss_dict[c].append(float(chan[ci]))
                 running_loss += loss
@@ -235,7 +282,7 @@ def train_unet(
                         write_log(s, out_dir)
                     running_loss = 0.0
             if validate:
-                v_y_hats = run_validation(e, (e + 1) * len(x))
+                v_y_hats = run_validation(e, (e + 1) * len(steps))
             if save_output:
                 print("Saving Training Checkpoint...")
                 _save_checkpoint_file(params_to_numpy(net), out_dir,

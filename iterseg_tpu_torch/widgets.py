@@ -444,7 +444,8 @@ def segment_data(
 ):
     """Dispatch to a registered segmenter (identical signature to the
     reference widget incl. its debug=True default); ``devices`` goes to the
-    segmenter (a list of one ``torch.device``; ``None``: CUDA)."""
+    segmenter (a list of ``torch.device``s a stack's frames round-robin
+    over; ``None``: CUDA)."""
     seg_func = segmenters[segmenter]
     return seg_func(napari_viewer, input_volume_layer, save_dir, name,
                     network_or_config_file, layer_reference, chunk_size,

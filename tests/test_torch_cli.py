@@ -1,8 +1,9 @@
 """The port's CLI (``python -m iterseg_tpu_torch``) against the JAX
 package's: the same subcommands and options (plus the port's ``--device``),
 DoG labels and OME metadata bit-equal to JAX's CLI run op by op, affinity
-labels bit-equal to the port's own segmenter call, and the paths the port
-has not ported exiting non-zero."""
+labels bit-equal to the port's own segmenter call, ``pod-segment`` over
+two gloo processes equal to one process, and the path the port has not
+ported (orbax checkpoint directories) exiting non-zero."""
 import argparse
 import json
 import os
@@ -204,24 +205,28 @@ def test_segment_unknown_segmenter(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,error", [
-    pytest.param(["pod-segment", "--input", "a.zarr", "--output", "b.zarr"],
-                 NotImplementedError, id="argv0-NotImplementedError"),
+    pytest.param(["convert", "--input", "a.npz", "--output", "orbax-dir"],
+                 ValueError, id="orbax-ValueError"),
     pytest.param(["--device", "cpu", "segment", "--device-flood", "exact"],
-                 None, id="argv1-NotImplementedError"),
+                 None, id="flood-exact"),
     pytest.param(["--device", "cpu", "segment", "--device-flood", "auto"],
-                 None, id="argv2-NotImplementedError"),
+                 None, id="flood-auto"),
     pytest.param(["--device", "cpu", "segment", "--flood-telemetry"],
-                 None, id="argv3-NotImplementedError"),
+                 None, id="flood-telemetry"),
 ])
 def test_unported_paths_raise(stack_zarrs, tmp_path, argv, error):
-    """``pod-segment`` still raises (slice 7). The flood options of slice 3
-    run: ``exact`` and ``--flood-telemetry`` give the default flood's
-    labels, ``auto`` on the CPU is the ``"xla"`` flood (``True``)."""
+    """The one path the CLI has not ported, an orbax checkpoint directory
+    (it needs JAX; ROADMAP Queue 1), raises before it reads anything. The
+    flood options run: ``exact`` and ``--flood-telemetry`` give the
+    default flood's labels, ``auto`` on the CPU is the ``"xla"`` flood
+    (``True``)."""
     from iterseg_tpu_torch.engine.segmentation import affinity_unet_watershed
 
     if error is not None:
-        with pytest.raises(error, match="slice"):
-            tcli.main(argv)
+        with pytest.raises(error, match="orbax"):
+            tcli.main([a if a != "orbax-dir" else str(tmp_path / a)
+                       for a in argv])
+        assert not (tmp_path / "orbax-dir").exists()
         return
     ip, _, image = stack_zarrs
     assert tcli.main(argv + ["--input", ip, "--output-dir", str(tmp_path),
@@ -236,22 +241,99 @@ def test_unported_paths_raise(stack_zarrs, tmp_path, argv, error):
     np.testing.assert_array_equal(got, want)
 
 
-def test_serve_local_devices_raises(tmp_path, monkeypatch):
-    argv = ["serve", "--watch-dir", str(tmp_path), "--output-dir",
-            str(tmp_path / "out"), "--local-devices", "--once"]
+def test_serve_local_devices_raises(stack_zarrs, tmp_path, monkeypatch):
+    """``serve --local-devices`` raises without a card (never a silent CPU
+    run); with two cards (stood in for by two CPU entries) the frames
+    round-robin over them and the labels are one device's."""
+    from iterseg_tpu_torch.engine.segmentation import dog_blob_watershed
+
+    ip, _, image = stack_zarrs
+    w = tmp_path / "in"
+    os.makedirs(w)
+    save_zarr(w / "stack.zarr", image)
+    argv = ["serve", "--watch-dir", str(w), "--output-dir",
+            str(tmp_path / "out"), "--local-devices", "--once",
+            "--segmenter", "DoG-blob-watershed"] + GRID
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             tcli.main(argv)
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        tcli.main(argv)
+    monkeypatch.setattr(tcli, "_local_devices", lambda: [CPU, CPU])
+    assert tcli.main(argv) == 0
+    got = np.asarray(open_zarr(str(tmp_path / "out" / "stack.ome.zarr"
+                                   / "0")))
+    want = dog_blob_watershed(None, image, None, "x", None, debug=True,
+                              devices=[CPU])
+    assert got.max() > 0
+    np.testing.assert_array_equal(got, np.asarray(want))
 
 
 def test_python_m_exits_non_zero_on_unported_path(tmp_path):
     r = subprocess.run(
-        [sys.executable, "-m", "iterseg_tpu_torch", "pod-segment",
-         "--input", "a.zarr", "--output", str(tmp_path / "b.zarr")],
+        [sys.executable, "-m", "iterseg_tpu_torch", "convert",
+         "--input", "a.npz", "--output", str(tmp_path / "orbax-dir")],
         cwd=ROOT, env=cpu_subprocess_env(), capture_output=True, text=True,
         timeout=300)
     assert r.returncode != 0
-    assert "NotImplementedError" in r.stderr and "slice 7" in r.stderr
+    assert "ValueError" in r.stderr and "orbax" in r.stderr
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def test_pod_segment_two_processes_equal_one(stack_zarrs, tmp_path):
+    """Two ``pod-segment --device cpu`` processes joined by gloo give the
+    labels of one process, and with ``--gt`` the same CSV bytes."""
+    ip, gp, _ = stack_zarrs
+    common = ["--input", ip, "--gt", gp, "--segmenter",
+              "DoG-blob-watershed", "--exclude-chunks-less-than", "2"] + GRID
+    one = ["--device", "cpu", "pod-segment", "--output",
+           str(tmp_path / "one.zarr"), "--metrics-dir",
+           str(tmp_path / "m1")] + common
+    assert tcli.main(one) == 0
+    port = _free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "iterseg_tpu_torch", "--device", "cpu",
+         "pod-segment", "--output", str(tmp_path / "pod.zarr"),
+         "--metrics-dir", str(tmp_path / "m2"), "--coordinator",
+         f"127.0.0.1:{port}", "--num-processes", "2", "--process-id",
+         str(pid)] + common, cwd=ROOT, env=cpu_subprocess_env(),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for pid in (0, 1)]
+    outs = [p.communicate(timeout=240)[0] for p in procs]
+    for pid, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, out[-3000:]
+        assert f"host frames: [{pid}]" in out
+    want = np.asarray(open_zarr(str(tmp_path / "one.zarr")))
+    assert want.max() > 0
+    np.testing.assert_array_equal(
+        np.asarray(open_zarr(str(tmp_path / "pod.zarr"))), want)
+    names = sorted(os.listdir(tmp_path / "m1"))
+    assert "pod-metrics_pod_scores.csv" in names
+    assert sorted(os.listdir(tmp_path / "m2")) == names
+    for name in names:
+        assert (tmp_path / "m2" / name).read_bytes() == (
+            tmp_path / "m1" / name).read_bytes(), name
+
+
+def test_pod_devices_one_card_a_process(monkeypatch):
+    """Without ``--device`` process p takes ``cuda:{p % device_count}``;
+    ``--device`` and ``--local-devices`` override it."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    args = tcli.build_parser().parse_args(
+        ["pod-segment", "--input", "a", "--output", "b"])
+    assert [tcli._pod_devices(args, p) for p in range(3)] == [
+        [torch.device("cuda", 0)], [torch.device("cuda", 1)],
+        [torch.device("cuda", 0)]]
+    args = tcli.build_parser().parse_args(
+        ["--device", "cpu", "pod-segment", "--input", "a", "--output", "b"])
+    assert tcli._pod_devices(args, 1) == [CPU]
+    args = tcli.build_parser().parse_args(
+        ["pod-segment", "--input", "a", "--output", "b", "--local-devices"])
+    assert tcli._pod_devices(args, 1) == [torch.device("cuda", 0),
+                                          torch.device("cuda", 1)]

@@ -510,3 +510,117 @@ def test_true_resolves_to_pallas_or_host_on_card(cuda):
         assert cls.normalize_device_flood(True) == want
         assert cls.normalize_device_flood(True, cuda) == want
     assert DoGPipeline(device_flood=True).device_flood == want
+
+
+@pytest.fixture
+def two_cards(cuda):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    return [torch.device("cuda", 0), torch.device("cuda", 1)]
+
+
+@pytest.mark.parametrize("flood", ["affinity", "image"])
+def test_kernels_launch_on_the_second_card(two_cards, flood):
+    """A flood on cuda:1 tensors, with cuda:0 current, runs on cuda:1 and
+    equals its plain version; the current card is left as it was."""
+    dev = two_cards[1]
+    if flood == "affinity":
+        inputs = as_inputs(*smooth_case(seed=3), device=dev)
+        kernel, plain, count = (fk.affinity_flood, fk.affinity_flood_plain,
+                                fk.launches)
+    else:
+        inputs = tuple(torch.from_numpy(x).to(dev) for x in edt_case(seed=3))
+        kernel, plain, count = (ifk.image_flood, ifk.image_flood_plain,
+                                ifk.launches)
+    torch.cuda.set_device(two_cards[0])
+    before = count()
+    got, n, conv = kernel(*inputs)
+    want, n_plain, _ = plain(*inputs)
+    assert count() == before + 2 and torch.cuda.current_device() == 0
+    assert got.device == dev and conv and n == n_plain
+    assert torch.equal(got, want)
+
+
+def stack_case(n_frames=3, shape=(10, 96, 96)):
+    r = np.random.default_rng(11)
+    frames = []
+    for _ in range(n_frames):
+        vol = np.zeros(shape, np.float32)
+        pts = np.stack([r.integers(1, s - 1, size=30) for s in shape], 1)
+        vol[tuple(pts.T)] = 1.0
+        vol = ndi.gaussian_filter(vol, (1, 3, 3))
+        frames.append((vol / vol.max() * 60000).astype(np.uint16))
+    return np.stack(frames)
+
+
+def round_robin(kind, devices, stack):
+    from iterseg_tpu_torch.engine import device_pipeline as dp
+    from iterseg_tpu_torch.engine.predict import load_unet
+
+    if kind == "affinity":
+        pipe = dp.AffinityPipeline(load_unet(None), (10, 64, 64),
+                                   (1, 16, 16), device_flood="pallas",
+                                   device=devices[0])
+        launches, reset = fk.launches, fk.reset_launches
+    else:
+        pipe = dp.DoGPipeline(device_flood="pallas", device=devices[0])
+        launches, reset = ifk.launches, ifk.reset_launches
+    out = np.zeros(stack.shape, np.int32)
+    reset()
+    dp.reset_flood_fallbacks()
+    assert list(pipe.segment_stack(stack, out, devices=devices)) == list(
+        range(len(stack)))
+    assert launches() == 2 * len(stack) and dp.flood_fallbacks() == 0
+    return out
+
+
+@pytest.mark.parametrize("kind", ["affinity", "dog"])
+def test_one_card_listed_twice_equals_one_card(cuda, kind):
+    """The round-robin and its lookahead on one card: ``[cuda, cuda]``
+    gives ``[cuda]``'s labels, two flood launches a frame."""
+    stack = stack_case()
+    one = round_robin(kind, [cuda], stack)
+    assert one.max() > 0
+    np.testing.assert_array_equal(round_robin(kind, [cuda, cuda], stack), one)
+
+
+@pytest.mark.parametrize("kind", ["affinity", "dog"])
+def test_two_card_round_robin_equals_one_card(two_cards, kind):
+    stack = stack_case()
+    one = round_robin(kind, two_cards[:1], stack)
+    np.testing.assert_array_equal(round_robin(kind, two_cards, stack), one)
+
+
+def test_dp_train_step_on_cards_matches_cpu(cuda):
+    """The data-parallel step over ``[cuda, cuda]`` (two cards when there
+    are two) against ``[cpu, cpu]``, with ``train_parity``'s bounds."""
+    from iterseg_tpu_torch.engine.predict import load_unet
+    from iterseg_tpu_torch.models.convert import params_from_numpy
+    from iterseg_tpu_torch.parallel.mesh import Mesh, make_sharded_train_step
+    from iterseg_tpu_torch.train.losses import make_loss_function
+
+    r = np.random.default_rng(2)
+    x = r.random((2, 1, 10, 64, 64)).astype(np.float32)
+    y = (r.random((2, 5, 10, 64, 64)) > 0.5).astype(np.float32)
+    cards = [torch.device("cuda", i % torch.cuda.device_count())
+             for i in range(2)]
+    params = load_unet(None).params
+    got = {}
+    for name, devices in (("card", cards), ("cpu", [torch.device("cpu")] * 2)):
+        net = params_from_numpy(params).to(devices[0]).train()
+        step = make_sharded_train_step(
+            Mesh([[d] for d in devices]), net, make_loss_function("BCELoss"),
+            torch.optim.SGD(net.parameters(), lr=0.0), double_step=False)
+        loss = float(step(x, y, 0))
+        got[name] = (loss, {k: p.grad.cpu() for k, p in
+                            net.named_parameters()},
+                     {k: v.cpu() for k, v in net.state_dict().items()
+                      if "running" in k})
+    card, host = got["card"], got["cpu"]
+    assert abs(card[0] - host[0]) <= 1e-5 * abs(host[0])
+    gmax = max(float(g.abs().max()) for g in host[1].values())
+    for k, g in host[1].items():
+        assert float((card[1][k] - g).abs().max()) <= 5e-3 * gmax, k
+    for k, v in host[2].items():
+        assert float((card[2][k] - v).abs().max()) <= 1e-5 * float(
+            v.abs().max()), k

@@ -233,8 +233,9 @@ def test_trio_runs_with_example_configs(name):
 
 
 def test_unsupported_modes_raise():
-    """Only slice 7 (several GPUs) and an unknown mode still raise; every
-    flood mode builds."""
+    """Only an unknown mode still raises; every flood mode builds, and
+    several devices round-robin a stack's frames with the labels of one
+    device."""
     want = {True: "xla", "xla": "xla", "exact": "exact", "pallas": "pallas",
             False: False}
     for mode, resolved in want.items():
@@ -242,9 +243,13 @@ def test_unsupported_modes_raise():
                                device=CPU).device_flood == resolved
     with pytest.raises(ValueError):
         tdp.DoGPipeline(device_flood="cuda", device=CPU)
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        tseg.dog_blob_watershed(None, np.zeros((2, 10, 32, 32), np.uint16),
-                                debug=True, devices=[CPU, CPU])
+    stack = np.stack([blob_volume(shape=(10, 32, 32), n=6, seed=s)
+                      for s in (1, 2)])
+    one = tseg.dog_blob_watershed(None, stack, debug=True, devices=[CPU])
+    two = tseg.dog_blob_watershed(None, stack, debug=True,
+                                  devices=[CPU, CPU])
+    assert np.asarray(one).max() > 0
+    np.testing.assert_array_equal(np.asarray(two), np.asarray(one))
 
 
 def test_xla_finalize_equals_jax():

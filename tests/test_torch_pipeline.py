@@ -257,9 +257,10 @@ def test_json_config_sources(tmp_path, vol_u16):
 
 
 def test_unsupported_modes_raise(model, vol_u16, fast_labels):
-    """Only slice 7 (several GPUs) still raises; every flood mode builds,
-    and ``flood_telemetry`` runs on a volume and on a stack (JAX drops it
-    on a stack; the port keeps it)."""
+    """Nothing raises any more: every flood mode builds, several devices
+    round-robin a stack's frames with the labels of one device, and
+    ``flood_telemetry`` runs on a volume and on a stack (JAX drops it on a
+    stack; the port keeps it)."""
     want = {True: "xla", "xla": "xla", "exact": "exact", "pallas": "pallas",
             False: False, None: False}
     for mode, resolved in want.items():
@@ -267,9 +268,11 @@ def test_unsupported_modes_raise(model, vol_u16, fast_labels):
         assert pipe.device_flood == resolved and pipe.speculative_flood
     assert tdp.AffinityPipeline(model, flood_telemetry=True,
                                 device=CPU).flood_telemetry
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        affinity_unet_watershed(None, np.zeros((2,) + SHAPE, np.uint16),
-                                debug=True, devices=[CPU, CPU])
+    two = np.asarray(affinity_unet_watershed(
+        None, np.stack([vol_u16, vol_u16]), chunk_size=CHUNK, margin=MARGIN,
+        debug=True, devices=[CPU, CPU]))
+    np.testing.assert_array_equal(two[0], fast_labels)
+    np.testing.assert_array_equal(two[1], fast_labels)
     kw = dict(chunk_size=CHUNK, margin=MARGIN, debug=True, devices=[CPU],
               flood_telemetry=True)
     got = affinity_unet_watershed(None, vol_u16, **kw)
