@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout, on a machine with one CUDA card (or
-several: phase ``multi`` uses them all), the CUDA toolkit (``nvcc``) and
+several: phases ``multi`` and ``space`` use them all), the CUDA toolkit (``nvcc``) and
 ``g++``. It imports nothing of JAX or of
 ``iterseg_tpu``. Phases, each printing one JSON line:
 
@@ -100,7 +100,21 @@ several: phase ``multi`` uses them all), the CUDA toolkit (``nvcc``) and
    first step against the same step over ``[cpu, cpu]`` with phase 9's
    bounds, then one epoch of ``train_unet(mesh=...)`` on the cards (ms a
    step, peak memory a card);
-14. the ``kernels`` line: each hand-written kernel timed on the inputs its
+14. ``space`` (one line each: ``space_apply``, ``space_predict``,
+   ``space_train``): the mesh's ``space`` axis, each chunk's x split over
+   ``make_mesh()``'s cards with halo exchanges, or over the one card listed
+   four times (a (1, 4) mesh). One (10, 256, 256) chunk through
+   ``sharded_apply`` against one card's forward (max-abs <= 1e-5, ms and
+   peak GB a card each); the (33, 512, 512) volume through
+   ``sharded_predict_volume`` against ``predict_volume`` (<= 1e-5), each
+   feature map flooded by the CUDA affinity kernel with the seeds and mask
+   of ``segment_output_image`` (two launches a flood; labels bit-equal
+   when the features are, else the agreement printed); the first train
+   step against the same step over the CPU with phase 9's bounds, then
+   ``train_unet`` on the mesh (``n_devices=`` on several cards) and the
+   batch-1 loop on one card over five (10, 256, 256) chunks (ms a step,
+   peak GB a card);
+15. the ``kernels`` line: each hand-written kernel timed on the inputs its
    path gave it, against its plain version, with its launches on its path,
    its steps and tile-steps (equal to the plain frontier schedule's), the
    split of its time into the init kernel and the step kernel, and its
@@ -784,6 +798,199 @@ def run_dp_training(stack, devices, distinct, work):
             "epoch_s": epoch_s, "peak_bytes": peaks}
 
 
+def synced(fn, cards, reps=3):
+    """``fn()``'s result and its mean wall ms over ``reps`` runs after one
+    warm-up, each run ending in a synchronise of every card in ``cards``."""
+    import torch
+
+    out = fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        out = fn()
+        for d in cards:
+            torch.cuda.synchronize(d)
+    return out, (time.perf_counter() - t0) / reps * 1e3
+
+
+def peak_gb(fn, cards):
+    """``fn()``'s result and the peak GB it allocated on each card."""
+    import torch
+
+    for d in cards:
+        torch.cuda.synchronize(d)
+        torch.cuda.reset_peak_memory_stats(d)
+    out = fn()
+    return out, {str(d): torch.cuda.max_memory_allocated(d) / 1e9
+                 for d in cards}
+
+
+def flood_features(feats, dev):
+    """The CUDA affinity flood on a (5, z, y, x) feature map, with the
+    seeds and mask that ``ops/watershed.segment_output_image`` takes from
+    it (the card's feature prep, peaks, Otsu mask, size band). Returns the
+    cropped labels and the flood's kernel launches."""
+    import numpy as np
+    import torch
+
+    from iterseg_tpu_torch.ops import flood_kernel as fk
+    from iterseg_tpu_torch.ops.cc import size_band_filter
+    from iterseg_tpu_torch.ops.peaks import peak_local_max
+    from iterseg_tpu_torch.ops.watershed import _prep_feature_maps
+
+    aff, cent, otsu = _prep_feature_maps(*(
+        torch.as_tensor(np.ascontiguousarray(f), device=dev)
+        for f in (feats[:3], feats[4], feats[3])))
+    centroids = peak_local_max(cent, threshold_abs=0.04) + 1
+    mask = np.pad(feats[3] > np.float32(otsu.item()), 1)
+    mask, centroids = size_band_filter(mask, centroids, min_area=10,
+                                       max_area=10000000)
+    seeds = torch.zeros(mask.shape, dtype=torch.int32, device=dev)
+    seeds[tuple(torch.as_tensor(centroids.T, device=dev).long())] = (
+        torch.arange(1, len(centroids) + 1, dtype=torch.int32, device=dev))
+    before = fk.launches()
+    labels, _, converged = fk.affinity_flood(
+        aff, seeds, torch.from_numpy(mask).to(dev), inner_cap=1)
+    n_launched = fk.launches() - before
+    check(converged, "space_predict: the CUDA flood did not converge")
+    return labels[1:-1, 1:-1, 1:-1].cpu().numpy(), n_launched
+
+
+def run_space(vol, dev, t_main, chunk=(10, 256, 256), margin=(1, 64, 64)):
+    """Phase ``space``: the mesh's ``space`` axis, each chunk's x split over
+    the cards with halo exchanges. ``make_mesh()`` over every card, or
+    ``[dev] * 4`` on a one-card machine; the eval forward of a ``chunk``,
+    ``vol`` through ``sharded_predict_volume`` and the flood of its
+    features, and the train step and ``train_unet`` on five chunks of
+    ``vol``, each against one card (the step against the CPU). Returns the
+    phase's lines."""
+    import numpy as np
+    import torch
+
+    from iterseg_tpu_torch.engine.predict import (DEFAULT_UNET_PATH,
+                                                  load_unet, predict_volume)
+    from iterseg_tpu_torch.models.convert import params_from_numpy
+    from iterseg_tpu_torch.parallel import mesh as pm
+    from iterseg_tpu_torch.train.labels import get_training_labels
+    from iterseg_tpu_torch.train.losses import make_loss_function
+    from iterseg_tpu_torch.train.train import train_unet
+
+    n_cards = torch.cuda.device_count()
+    mesh = (pm.make_mesh() if n_cards > 1
+            else pm.make_mesh(devices=[dev] * 4))
+    dp, sp = mesh.shape["data"], mesh.shape["space"]
+    devices = list(mesh.devices.flat)
+    cards = sorted(set(devices), key=str)
+    base = {"mesh": mesh.shape, "devices": [str(d) for d in devices],
+            "distinct_cards": len(cards)}
+    model = load_unet(None)
+    lines = []
+
+    # space_apply: one chunk a data row, against one card
+    blobs = blob_volume(chunk, 60, 1).astype(np.float32)
+    x = np.stack([blobs / blobs.max()] * dp)[:, None]
+    run = pm.sharded_apply(pm.replicate_params(model.params, mesh),
+                           model.spec, mesh)
+    (got, peaks), ms = synced(lambda: peak_gb(lambda: run(x), cards), cards)
+    (want, one_peak), one_ms = synced(lambda: peak_gb(
+        lambda: model(x, device=dev), [dev]), [dev])
+    err = float((got - want).abs().max())
+    check(got.shape == (dp, 5) + chunk
+          and bool(torch.isfinite(got).all()), f"space_apply {got.shape}")
+    check(err <= 1e-5, f"space_apply: {err} against one card")
+    lines.append(dict(base, phase="space_apply", shape=list(x.shape),
+                      max_abs=err, bound=1e-5, ms=ms, one_card_ms=one_ms,
+                      peak_gb=peaks, one_card_peak_gb=one_peak))
+
+    # space_predict: the volume through the mesh and through one card, then
+    # the CUDA flood of each feature map, two launches a flood
+    v = (vol / vol.max()).astype(np.float32)
+    grid = dict(chunk_size=chunk, margin=margin)
+    t0 = time.perf_counter()
+    feats = pm.sharded_predict_volume(model, v, mesh, **grid)
+    predict_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    one = predict_volume(model, v, device=dev, **grid)
+    one_s = time.perf_counter() - t0
+    err = float(np.abs(feats - one).max())
+    check(feats.shape == (5,) + v.shape and np.isfinite(feats).all(),
+          f"space_predict features {feats.shape}")
+    check(err <= 1e-5, f"space_predict: {err} against one card")
+    labels, launches = flood_features(feats, dev)
+    one_labels, one_launches = flood_features(one, dev)
+    check(launches == one_launches == 2,
+          f"space_predict: {launches}, {one_launches} flood launches")
+    check(int(labels.max()) > 0, "space_predict: nothing labelled")
+    features_equal = bool(np.array_equal(feats, one))
+    sel = one_labels > 0
+    agreement = float((labels[sel] == one_labels[sel]).mean())
+    if features_equal:
+        check(np.array_equal(labels, one_labels),
+              "space_predict: equal features, labels differ")
+    lines.append(dict(base, phase="space_predict", shape=list(v.shape),
+                      max_abs=err, bound=1e-5,
+                      features_equal=features_equal,
+                      labels_equal=bool(np.array_equal(labels, one_labels)),
+                      agreement=agreement, objects=int(labels.max()),
+                      flood_launches=[launches, one_launches],
+                      seconds=predict_s, one_card_seconds=one_s))
+
+    # space_train: the first step against the same step over the CPU, with
+    # train_parity's bounds, then train_unet on the mesh against one card
+    chans = ("z-1", "y-1", "x-1", "mask", "centreness-log")
+    xs, ys = [], []
+    for i in range(5):
+        z0, y0, x0 = (i * (s - c) // 4 for s, c in zip(vol.shape, chunk))
+        crop = vol[z0:z0 + chunk[0], y0:y0 + chunk[1], x0:x0 + chunk[2]]
+        xs.append((crop / crop.max()).astype(np.float32))
+        ys.append(get_training_labels(blob_labels(crop), chans, (4, 1, 1),
+                                      device=dev).astype(np.float32))
+    first = {}
+    for name, m in (("card", mesh), ("cpu", pm.Mesh(
+            [[torch.device("cpu")] * sp] * dp))):
+        net = params_from_numpy(model.params).to(m.devices.flat[0]).train()
+        step = pm.make_sharded_train_step(
+            m, net, make_loss_function("BCELoss"),
+            torch.optim.SGD(net.parameters(), lr=0.0), double_step=False)
+        t0 = time.perf_counter()
+        loss = float(step(np.stack(xs[:dp])[:, None], np.stack(ys[:dp]), 0))
+        first[name] = (loss, {k: p.grad.cpu() for k, p in
+                              net.named_parameters()},
+                       {k: v.cpu() for k, v in net.state_dict().items()
+                        if k.endswith(("running_mean", "running_var"))},
+                       time.perf_counter() - t0)
+    card, host = first["card"], first["cpu"]
+    loss_rel = abs(card[0] - host[0]) / abs(host[0])
+    gmax = max(float(g.abs().max()) for g in host[1].values())
+    grad_rel = max(float((card[1][k] - g).abs().max())
+                   for k, g in host[1].items()) / gmax
+    stats_rel = max(float((card[2][k] - v).abs().max() / v.abs().max())
+                    for k, v in host[2].items())
+    check(loss_rel <= 1e-5, f"space loss card vs CPU: {loss_rel}")
+    check(grad_rel <= 5e-3, f"space gradients card vs CPU: {grad_rel}")
+    check(stats_rel <= 1e-5, f"space running stats card vs CPU: {stats_rel}")
+    kw = dict(epochs=1, validate=False, weights=DEFAULT_UNET_PATH,
+              channels=chans)
+    prof, one_prof = {}, {}
+    call = (dict(n_devices=n_cards) if n_cards > 1 else dict(mesh=mesh))
+    _, train_peaks = peak_gb(lambda: train_unet(
+        xs, [], ys, [], profile=prof, **call, **kw), cards)
+    _, one_train_peak = peak_gb(lambda: train_unet(
+        xs, [], ys, [], profile=one_prof, device=dev, **kw), [dev])
+    check(len(prof["step_s"]) == -(-5 // dp), f"space steps {prof}")
+    lines.append(dict(base, phase="space_train", chunk=list(chunk),
+                      chunks=5, train_call=list(call), loss=card[0],
+                      loss_rel=loss_rel, loss_bound=1e-5, grad_max=gmax,
+                      grad_resid_rel=grad_rel, grad_bound=5e-3,
+                      stats_resid_rel=stats_rel, stats_bound=1e-5,
+                      first_step_s={"card": card[3], "cpu": host[3]},
+                      step_ms=[s * 1e3 for s in prof["step_s"]],
+                      one_card_step_ms=[s * 1e3
+                                        for s in one_prof["step_s"]],
+                      peak_gb=train_peaks, one_card_peak_gb=one_train_peak,
+                      script_s=time.perf_counter() - t_main))
+    return lines
+
+
 def prod_fixture(shape, n, seed):
     """Three distinct smooth affinity channels (a trained U-Net's class,
     where the certificate certifies or repairs), seeds at the 5³ peaks."""
@@ -1094,6 +1301,7 @@ def main():
     from iterseg_tpu_torch.ops.watershed import segment_output_image
     from iterseg_tpu_torch.train.labels import get_training_labels
 
+    t_main = time.perf_counter()
     dev = torch.device("cuda")
     gpu = gpu_line()
     print(gpu, flush=True)
@@ -1391,7 +1599,11 @@ def main():
         for line in run_multi(work, kwargs):
             emit(line)
 
-    # 14. each kernel on its path's own inputs
+    # 14. the mesh's space axis: each chunk's x split over the cards
+    for line in run_space(vol, dev, t_main):
+        emit(line)
+
+    # 15. each kernel on its path's own inputs
     kernels = []
     for name, mod, flood, plain, calls, path_launches, line, in_bytes in (
             ("affinity_flood", fk, fk.affinity_flood,

@@ -15,7 +15,7 @@ Entry points run on CUDA unless the caller passes a CPU device
 (``python -m iterseg_tpu_torch``, ``--device cpu`` for the CPU).
 
 Several devices and hosts live in ``iterseg_tpu_torch.parallel`` (``mesh``:
-the data-parallel train step and chunk-batch inference; ``multihost``:
+the data x space train step and chunk-batch inference; ``multihost``:
 frames round-robined over processes on ``torch.distributed``), which the
 top level does not re-export, as in JAX.
 

@@ -15,8 +15,10 @@ unchanged. Invariants kept exactly:
 - the decoder crops ``[..., :-1, :-1]`` and ``[..., 1:-1, 1:-1]``;
 - any number of decoder forks sharing one encoder;
 - one forward, ``UNet.forward_shards``, over a batch split into shards,
-  with the leaf layers applied through a function the caller may give
-  (``parallel.mesh`` runs data-parallel training through it);
+  with the leaf layers applied through a function the caller may give and
+  each row of ``space`` shards splitting the x axis (``XSplit``);
+  ``parallel.mesh`` runs its data and space meshes through it, and
+  ``UNet.forward`` is its one-shard case;
 - eval BatchNorm folded to ``x * scale + shift`` exactly as the JAX model
   computes it; in train mode (``net.train()``) ``nn.BatchNorm3d``'s batch
   statistics: the biased variance normalises, and the running stats move
@@ -42,7 +44,8 @@ ENCODER_CHANNELS = (32, 64, 128, 256, 256)
 DECODER_IN_OUT = ((512, 128), (256, 64), (128, 32))
 BN_EPS = 1e-5
 
-__all__ = ["UNetSpec", "ConvModule", "UNet", "forked_unet_spec"]
+__all__ = ["UNetSpec", "ConvModule", "UNet", "XSplit", "split_bounds",
+           "forked_unet_spec"]
 
 
 class UNetSpec:
@@ -126,10 +129,141 @@ class Upsample(nn.ConvTranspose3d):
         return out + self.bias.reshape(1, -1, 1, 1, 1).to(x.dtype)
 
 
-def each_shard(m: nn.Module, xs):
+class Conv(nn.Conv3d):
+    """The 3x3x3 ``Conv3d`` of a ``ConvModule``. With ``halo=True`` its
+    input is a shard's slab that already holds one plane of x on each side
+    (its neighbours' planes, or zeros at the global ends), so only z and y
+    are padded and the output is two planes narrower; the slab of a shard
+    that owns no plane gives an empty output without a call."""
+
+    def __init__(self, cin, cout):
+        super().__init__(cin, cout, 3, 1, 1)
+
+    def forward(self, x, halo=False):
+        if not halo:
+            return super().forward(x)
+        n, _, z, y, width = x.shape
+        if width <= 2:
+            return x.new_zeros(n, self.out_channels, z, y, 0)
+        return F.conv3d(x, self.weight, self.bias, padding=(1, 1, 0))
+
+
+def each_shard(m: nn.Module, xs, **kw):
     """The default layer function of ``forward_shards``: the leaf module
-    ``m`` on each shard."""
-    return [m(x) for x in xs]
+    ``m`` on each shard (``kw`` goes to its forward)."""
+    return [m(x, **kw) for x in xs]
+
+
+def split_bounds(width: int, parts: int):
+    """The balanced split of ``width`` x planes over ``parts`` shards:
+    shard s owns ``[b[s], b[s + 1])`` (possibly empty) of the returned
+    ``b``."""
+    return [s * width // parts for s in range(parts + 1)]
+
+
+class XSplit:
+    """How ``forward_shards`` splits the x axis: the shards form rows of
+    ``parts`` consecutive shards (the mesh's ``space`` extent), and at every
+    level of the U-Net shard s of a row owns the planes ``split_bounds(W,
+    parts)[s:s + 2]`` of that level's width W (W' = W // 2 + 1 under each
+    pool: 256 -> 129 -> 65 -> 33 -> 17). Each op builds the planes it reads
+    with ``fetch`` from the shards that own them: a conv one plane a side,
+    a pool its windows' planes, an upsample the planes under its owned,
+    cropped output. ``parts=1`` is one device's forward: every shard owns
+    its whole width and each op runs as is."""
+
+    def __init__(self, parts: int = 1):
+        self.parts = int(parts)
+
+    def rows(self, xs):
+        """The shards row by row, with each row's bounds; a row whose
+        widths are not the balanced split of their sum raises."""
+        p = self.parts
+        if len(xs) % p:
+            raise ValueError(f"{len(xs)} shards do not form rows of {p}")
+        for r in range(0, len(xs), p):
+            row = xs[r:r + p]
+            b = split_bounds(sum(x.shape[-1] for x in row), p)
+            got = [x.shape[-1] for x in row]
+            if got != [hi - lo for lo, hi in zip(b, b[1:])]:
+                raise RuntimeError(f"shard widths {got} are not the "
+                                   f"balanced split {b} of x")
+            yield row, b
+
+    @staticmethod
+    def fetch(row, b, s, lo, hi, fill=None):
+        """Planes ``[lo, hi)`` of a row's level on shard s's device: each
+        owner's part moved by ``tensor.to`` (autograd carries its gradient
+        back), and ``fill`` outside ``[0, W)``. The result may be a view
+        of a shard: never write into it."""
+        own = row[s]
+        if hi <= lo:
+            return own[..., :0]
+        parts = []
+        shape = own.shape[:-1]
+
+        def pad(n):
+            parts.append(torch.full(shape + (n,), fill, dtype=own.dtype,
+                                    device=own.device))
+
+        if lo < 0:
+            pad(-lo)
+        for x, a, c in zip(row, b, b[1:]):
+            a2, c2 = max(a, lo), min(c, hi)
+            if a2 < c2:
+                parts.append(x[..., a2 - a:c2 - a].to(own.device))
+        if hi > b[-1]:
+            pad(hi - b[-1])
+        return parts[0] if len(parts) == 1 else torch.cat(parts, -1)
+
+    def conv(self, layer, m, xs):
+        """A 3x3x3 conv (zero padding) of each shard's owned planes."""
+        if self.parts == 1:
+            return layer(m, xs)
+        slabs = [self.fetch(row, b, s, b[s] - 1, b[s + 1] + 1, 0.0)
+                 for row, b in self.rows(xs) for s in range(self.parts)]
+        return layer(m, slabs, halo=True)
+
+    def pool(self, xs, factors):
+        """Max pool, kernel = stride = ``factors``, padding (0, 1, 1):
+        output plane j reads input planes 2j - 1 and 2j."""
+        if self.parts == 1:
+            return [F.max_pool3d(x, factors, factors, padding=(0, 1, 1))
+                    for x in xs]
+        out = []
+        for row, b in self.rows(xs):
+            nb = split_bounds(b[-1] // 2 + 1, self.parts)
+            for s, (lo, hi) in enumerate(zip(nb, nb[1:])):
+                if hi == lo:
+                    n, c, z, y, _ = row[s].shape
+                    out.append(row[s].new_zeros(
+                        n, c, z // factors[0], y // factors[1] + 1, 0))
+                    continue
+                slab = self.fetch(row, b, s, 2 * lo - 1, 2 * hi - 1,
+                                  float("-inf"))
+                out.append(F.max_pool3d(slab, factors, factors,
+                                        padding=(0, 1, 0)))
+        return out
+
+    def up_cat(self, layer, m, xs, c, skips):
+        """Upsample ``xs`` (``m``, kernel = stride, x factor 2), crop it
+        to the skips' level (y and x ``[c:-1]``: ``inner`` c = 0, ``outer``
+        c = 1) and concatenate each shard with its skip, which owns the
+        same planes: output plane i is upsampled plane i + c, which reads
+        input plane (i + c) // 2."""
+        slabs, crops = [], []
+        skip_rows = self.rows(skips)
+        for row, b in self.rows(xs):
+            _, sb = next(skip_rows)
+            for s, (lo, hi) in enumerate(zip(sb, sb[1:])):
+                a = (lo + c) // 2
+                slabs.append(self.fetch(row, b, s, a, (hi + c + 1) // 2))
+                crops.append(slice(lo + c - 2 * a, hi + c - 2 * a))
+        return [torch.cat([u[..., c:-1, xc], sk], 1) for u, xc, sk in
+                zip(layer(m, slabs), crops, skips)]
+
+
+WHOLE = XSplit(1)
 
 
 class ConvModule(nn.Module):
@@ -137,8 +271,8 @@ class ConvModule(nn.Module):
 
     def __init__(self, cin, cout, final="relu"):
         super().__init__()
-        self.conv0 = nn.Conv3d(cin, cout, 3, 1, 1)
-        self.conv1 = nn.Conv3d(cout, cout, 3, 1, 1)
+        self.conv0 = Conv(cin, cout)
+        self.conv1 = Conv(cout, cout)
         self.batch0 = BatchNorm(cout)
         self.batch1 = BatchNorm(cout)
         self.final = final
@@ -146,12 +280,12 @@ class ConvModule(nn.Module):
     def forward(self, x):
         return self.forward_shards([x])[0]
 
-    def forward_shards(self, xs, layer=each_shard):
+    def forward_shards(self, xs, layer=each_shard, split=WHOLE):
         """The block over a batch split into shards (see
         ``UNet.forward_shards``)."""
-        xs = [torch.relu(x) for x in layer(self.batch0,
-                                           layer(self.conv0, xs))]
-        xs = layer(self.batch1, layer(self.conv1, xs))
+        xs = [torch.relu(x) for x in layer(
+            self.batch0, split.conv(layer, self.conv0, xs))]
+        xs = layer(self.batch1, split.conv(layer, self.conv1, xs))
         return [_final_activation(x, self.final) for x in xs]
 
 
@@ -201,48 +335,39 @@ class UNet(nn.Module):
                     m.reset_parameters()
         return self
 
-    @staticmethod
-    def _pool(x, factors):
-        return F.max_pool3d(x, factors, factors, padding=(0, 1, 1))
-
     def forward(self, x):
         return self.forward_shards([x])[0]
 
-    def forward_shards(self, xs, layer=each_shard):
+    def forward_shards(self, xs, layer=each_shard, split=WHOLE):
         """The forward of a batch split into shards (a list of NCZYX
         tensors; one output each), layer by layer across the shards.
-        ``layer(m, xs)`` applies each leaf module ``m`` (a ``Conv3d``, a
-        ``BatchNorm`` or an ``Upsample``) to every shard: by default the
+        ``layer(m, xs, **kw)`` applies each leaf module ``m`` (a ``Conv``,
+        a ``BatchNorm`` or an ``Upsample``) to every shard: by default the
         module itself on each (``each_shard``); ``parallel.mesh`` passes
         one that gives each shard its device's parameters and takes the
-        BatchNorm statistics over all the shards."""
+        BatchNorm statistics over all the shards. ``split`` (an ``XSplit``)
+        says how rows of shards share the x axis and routes the convs, the
+        pools, and the upsamples with their crops and skip
+        concatenations; by default each shard holds its whole x axis."""
         def block(m, xs):
-            return m.forward_shards(xs, layer)
+            return m.forward_shards(xs, layer, split)
 
-        def pool(xs, factors):
-            return [self._pool(x, factors) for x in xs]
-
-        def up_cat(m, xs, crop, skips):
-            return [torch.cat([x[crop], s], 1)
-                    for x, s in zip(layer(m, xs), skips)]
-
-        inner = (Ellipsis, slice(None, -1), slice(None, -1))
-        outer = (Ellipsis, slice(1, -1), slice(1, -1))
         c0 = block(self.c0, xs)
-        c1 = block(self.c1, pool(c0, DOWN_FACTORS))
-        c2 = block(self.c2, pool(c1, DOWN_FACTORS))
-        c3 = block(self.c3, pool(c2, DOWN_FACTORS))
-        enc = block(self.c4, pool(c3, NEW_DOWN))
+        c1 = block(self.c1, split.pool(c0, DOWN_FACTORS))
+        c2 = block(self.c2, split.pool(c1, DOWN_FACTORS))
+        c3 = block(self.c3, split.pool(c2, DOWN_FACTORS))
+        enc = block(self.c4, split.pool(c3, NEW_DOWN))
         forks = []
         for i in range(len(self.spec.out_channels)):
+            # the decoder crops: inner [..., :-1, :-1], outer [..., 1:-1, 1:-1]
             x = block(getattr(self, f"c5_{i}"),
-                      up_cat(self.up0, enc, inner, c3))
+                      split.up_cat(layer, self.up0, enc, 0, c3))
             x = block(getattr(self, f"c6_{i}"),
-                      up_cat(self.up1, x, inner, c2))
+                      split.up_cat(layer, self.up1, x, 0, c2))
             x = block(getattr(self, f"c7_{i}"),
-                      up_cat(self.up2, x, inner, c1))
+                      split.up_cat(layer, self.up2, x, 0, c1))
             forks.append(block(getattr(self, f"c8_{i}"),
-                               up_cat(self.up3, x, outer, c0)))
+                               split.up_cat(layer, self.up3, x, 1, c0)))
         if len(forks) == 1:
             return forks[0]
         return [torch.cat(parts, 1) for parts in zip(*forks)]

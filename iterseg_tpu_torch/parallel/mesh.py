@@ -1,28 +1,30 @@
 """Device-mesh parallelism for inference and training.
 
 The port of ``iterseg_tpu/parallel/mesh.py``. A ``Mesh`` is a named grid of
-``torch.device``s, ``(data, space)`` as in JAX, and this module ports its
-``data`` axis in full:
+``torch.device``s, ``(data, space)`` as in JAX: a batch's N axis goes over
+``data`` and each chunk's x axis over ``space`` (``data_sharding``), so the
+shards are data x space blocks, listed data-major.
 
-- ``sharded_predict_volume``: the chunks of one frame fill the ``data``
-  devices, one chunk each per batch, the last batch zero-padded;
-- ``make_sharded_train_step``: the global batch split over ``data``, one
-  train-mode forward in lockstep over the shards, and BatchNorm statistics
-  taken over the whole batch, as JAX's partitioner takes them. Each
-  layer's per-shard sums are gathered on the first device, which computes
-  the mean and then the centred variance (JAX's two-pass form) and sends
-  both back. The loss is the loss function of the gathered outputs (the
-  global mean), and each parameter's gradient is the sum of its shards'
-  gradients in device order. The master parameters, the optimizer and the
-  running statistics live on the first device.
+- ``sharded_apply`` and ``sharded_predict_volume`` (the chunks of one frame
+  over ``data``, the last batch zero-padded) run the eval forward;
+- ``make_sharded_train_step`` runs one train-mode forward in lockstep over
+  the blocks, with BatchNorm statistics taken over every owned voxel of the
+  global batch, as JAX's partitioner takes them. Each layer's per-block
+  sums are gathered on the first device, which computes the mean and then
+  the centred variance (JAX's two-pass form) and sends both back. The loss
+  is the loss function of the gathered output (the global mean), and each
+  parameter's gradient is the sum of its blocks' gradients in block order.
+  The master parameters, the optimizer and the running statistics live on
+  the first device.
 
-Every transfer is a ``tensor.to(device)``, which autograd differentiates,
-so the step runs on CUDA cards and, with a list such as ``[cpu, cpu]``, on
-the CPU, where the tests hold it against the one-device step.
-
-The ``space`` axis (each chunk's x axis sharded, with the halo exchanges
-XLA's partitioner inserts in JAX) is not ported: a mesh whose ``space``
-extent is above 1 raises ``NotImplementedError``.
+Both run the U-Net's one forward, ``UNet.forward_shards``. Along ``space``
+it goes through ``models.unet.XSplit``: at every level each block owns a
+balanced share of that level's x planes and fetches the halo planes each
+conv, pool and upsample reads from the blocks that own them (the exchanges
+XLA's partitioner inserts in JAX). Every transfer is a ``tensor.to(device)``,
+which autograd differentiates, so the same code runs on CUDA cards, on one
+card listed several times, and on CPU lists such as ``[cpu] * 4``, where
+the tests hold it against the one-device forward and step and against JAX.
 """
 from __future__ import annotations
 
@@ -34,7 +36,7 @@ import torch
 import torch.nn as nn
 
 from ..device import f32_numerics, resolve_device
-from ..models.unet import UNet
+from ..models.unet import UNet, XSplit
 
 __all__ = [
     "Mesh",
@@ -45,8 +47,6 @@ __all__ = [
     "make_sharded_train_step",
     "sharded_predict_volume",
 ]
-
-SPACE_AXIS_ITEM = "ROADMAP Queue 1, item 'The space mesh axis'"
 
 
 class Mesh:
@@ -86,8 +86,8 @@ def make_mesh(n_devices: Optional[int] = None,
     """A 2D (data × space) mesh over ``devices`` (default: every CUDA card;
     raises without one, never falling back to the CPU), the first
     ``n_devices`` of them when given. The split is JAX's ``_factor2``:
-    ``space`` takes 4 or 2 first, so 2 and 4 devices make a pure ``space``
-    mesh, which the port does not run yet (``SPACE_AXIS_ITEM``)."""
+    ``space`` takes 4 or 2 first, so 2 and 4 devices make a (1, 2) and a
+    (1, 4) mesh and 8 a (2, 4) one."""
     if devices is None:
         resolve_device(None)
         devices = [torch.device("cuda", i)
@@ -101,39 +101,55 @@ def make_mesh(n_devices: Optional[int] = None,
     return Mesh(arr.reshape(dp, sp), axis_names)
 
 
-def _data_devices(mesh: Mesh):
-    """The devices along ``data`` of a mesh whose other axes have extent 1;
-    a ``space`` extent above 1 raises ``NotImplementedError``."""
+def _grid(mesh: Mesh):
+    """``(data extent, space extent, devices)``: the mesh's devices listed
+    data-major, one a block."""
     if not isinstance(mesh, Mesh):
         raise TypeError(f"expected a parallel.mesh.Mesh, got {mesh!r}")
-    if mesh.shape.get("space", 1) > 1:
-        raise NotImplementedError(
-            f"{mesh}: a 'space' extent above 1 shards each chunk's x axis, "
-            "which needs halo-exchanged convolutions, aligned (0,1,1) pools "
-            "and crops, and BatchNorm across the shards; the port runs the "
-            f"'data' axis only until {SPACE_AXIS_ITEM}")
-    if "data" not in mesh.axis_names:
-        raise ValueError(f"{mesh} has no 'data' axis")
-    return list(np.moveaxis(mesh.devices, mesh.axis_names.index("data"),
-                            0).reshape(mesh.shape["data"], -1)[:, 0])
+    if ("data" not in mesh.axis_names
+            or not set(mesh.axis_names) <= {"data", "space"}):
+        raise ValueError(f"{mesh}: the axes must be 'data' and 'space'")
+    grid = mesh.devices if mesh.axis_names[0] == "data" else mesh.devices.T
+    return (mesh.shape["data"], mesh.shape.get("space", 1),
+            list(grid.reshape(-1)))
+
+
+def _blocks(x, dp, sp):
+    """The data x space blocks of an (N, ..., x) tensor, data-major: N must
+    divide by ``dp`` and x by ``sp``, as in JAX."""
+    if x.shape[0] % dp:
+        raise ValueError(f"a batch of {x.shape[0]} does not split over "
+                         f"{dp} data devices")
+    if x.shape[-1] % sp:
+        raise ValueError(f"an x axis of {x.shape[-1]} does not split over "
+                         f"{sp} space devices")
+    return [blk for rows in x.chunk(dp) for blk in rows.chunk(sp, -1)]
+
+
+def _gather(outs, sp, device):
+    """The blocks' outputs as one tensor on ``device``: each row's blocks
+    joined along x, the rows along N."""
+    return torch.cat([torch.cat([o.to(device) for o in outs[r:r + sp]], -1)
+                      for r in range(0, len(outs), sp)])
 
 
 def replicate_params(params, mesh: Mesh):
     """One copy of the flat parameter dict (numpy arrays or tensors under
-    the state-dict keys) on each ``data`` device, as a list in device
-    order."""
+    the state-dict keys) on each device of the mesh, as a list in block
+    order (a device listed twice gets two entries)."""
     params = {k: v if isinstance(v, torch.Tensor) else torch.from_numpy(
         np.array(v, np.float32)) for k, v in params.items()}
     return [{k: v.to(device=d, dtype=torch.float32)
-             for k, v in params.items()} for d in _data_devices(mesh)]
+             for k, v in params.items()} for d in _grid(mesh)[2]]
 
 
 def data_sharding(mesh: Mesh):
-    """The batch split over ``data``: a function of an N-leading array or
-    tensor that returns its N / data-extent row blocks, each on its
-    device, in device order (N must divide, as in JAX). A list of one
-    block a device is taken as already split."""
-    devices = _data_devices(mesh)
+    """The batch split over the mesh: a function of an (N, C, z, y, x)
+    array or tensor that returns its data x space blocks (N over ``data``,
+    x over ``space``; each must divide, else ``ValueError``), each on its
+    device, data-major. A list of one block a device is taken as already
+    split."""
+    dp, sp, devices = _grid(mesh)
 
     def shard(x):
         if isinstance(x, (list, tuple)):
@@ -141,39 +157,70 @@ def data_sharding(mesh: Mesh):
                     for part, d in zip(x, devices, strict=True)]
         x = torch.as_tensor(np.asarray(x, np.float32) if not isinstance(
             x, torch.Tensor) else x)
-        if x.shape[0] % len(devices):
-            raise ValueError(f"a batch of {x.shape[0]} does not split over "
-                             f"{len(devices)} data devices")
-        return [part.to(d) for part, d in zip(
-            x.chunk(len(devices)), devices)]
+        return [blk.to(d) for blk, d in zip(_blocks(x, dp, sp), devices)]
 
     return shard
 
 
+class _Replicas:
+    """The layer function of ``UNet.forward_shards`` for the eval forward:
+    each block's leaf modules from the network copy of its own position
+    (``nets``, one a block; the first is the one the forward walks)."""
+
+    def __init__(self, nets):
+        self.names = {m: name for name, m in nets[0].named_modules()}
+        self.modules = [dict(net.named_modules()) for net in nets]
+
+    def __call__(self, m, xs, **kw):
+        name = self.names[m]
+        return [mods[name](x, **kw) for mods, x in zip(self.modules, xs)]
+
+
+def _eval_forward(nets, shards, sp):
+    """The eval forward of the blocks ``shards`` through ``nets``."""
+    with torch.no_grad(), f32_numerics():
+        return nets[0].forward_shards(shards, _Replicas(nets), XSplit(sp))
+
+
+def _net_holding(spec, state):
+    """An eval ``UNet`` on the device of ``state`` (a flat tensor dict
+    under the state-dict keys) holding those tensors."""
+    device = next(iter(state.values())).device
+    net = UNet(spec).to(device)
+    missing, unexpected = net.load_state_dict(state, strict=False)
+    if unexpected or any(not k.endswith("num_batches_tracked")
+                         for k in missing):
+        raise KeyError(f"parameters missing {missing}, unexpected "
+                       f"{unexpected}")
+    return net.eval()
+
+
 def sharded_apply(params, spec, mesh: Mesh):
-    """The eval forward with the batch sharded over ``data``: ``params`` is
-    ``replicate_params``' list; ``run(x)`` returns the (N, C, z, y, x)
-    float32 output gathered on the first device."""
-    net = UNet(spec)
-    devices = _data_devices(mesh)
+    """The eval forward over the mesh's blocks: ``params`` is
+    ``replicate_params``' list; ``run(x)`` takes an (N, C, z, y, x) batch
+    (``data_sharding``'s rules) and returns the (N, C', z, y, x) float32
+    output gathered on the first device."""
+    dp, sp, devices = _grid(mesh)
+    if len(params) != len(devices):
+        raise ValueError(f"{len(params)} parameter copies for the "
+                         f"{len(devices)} devices of {mesh}")
+    nets = [_net_holding(spec, p) for p in params]
     shard = data_sharding(mesh)
 
     def run(x):
-        with torch.no_grad(), f32_numerics():
-            outs = [torch.func.functional_call(net, p, (xk,))
-                    for p, xk in zip(params, shard(x))]
-        return torch.cat([o.to(devices[0]) for o in outs])
+        return _gather(_eval_forward(nets, shard(x), sp), sp, devices[0])
 
     return run
 
 
 class _Lockstep:
     """The layer function of ``UNet.forward_shards`` for a train-mode
-    forward over a batch split into shards, one per device. ``leaves`` holds
-    one detached copy of every parameter per device, which each shard's
-    layers read; their gradients are summed onto the master's by
-    ``reduce_grads``. Each BatchNorm takes the statistics of the whole
-    batch."""
+    forward over a batch split into blocks, one per mesh position.
+    ``leaves`` holds one detached copy of every parameter per block, which
+    each block's layers read; their gradients are summed onto the master's
+    by ``reduce_grads``. Each BatchNorm takes the statistics of the whole
+    batch: the blocks hold only their owned planes, so every voxel counts
+    once."""
 
     def __init__(self, net: UNet, devices):
         self.net = net
@@ -185,18 +232,18 @@ class _Lockstep:
         self.stats = []  # (BatchNorm module, batch mean, batch var, count)
 
     def _gather(self, parts):
-        """Sum per-shard tensors on the first device, in device order."""
+        """Sum per-block tensors on the first device, in block order."""
         d0 = self.devices[0]
         return functools.reduce(torch.add, [p.to(d0) for p in parts])
 
-    def __call__(self, m, xs):
+    def __call__(self, m, xs, **kw):
         name = self.names[m]
         params = [{"weight": self.leaves[name + ".weight"][k],
                    "bias": self.leaves[name + ".bias"][k]}
                   for k in range(len(xs))]
         if isinstance(m, nn.BatchNorm3d):
             return self.batchnorm(m, xs, params)
-        return [torch.func.functional_call(m, p, (x,))
+        return [torch.func.functional_call(m, p, (x,), kw)
                 for p, x in zip(params, xs)]
 
     def batchnorm(self, bn, xs, params):
@@ -218,8 +265,9 @@ class _Lockstep:
         return out
 
     def reduce_grads(self):
-        """Each master parameter's gradient: the sum of its shards'
-        gradients on the first device, in device order."""
+        """Each master parameter's gradient: the sum of its blocks'
+        gradients on the first device, in block order (data-major, then
+        space), whatever order autograd's device threads end in."""
         for name, p in self.net.named_parameters():
             grads = [leaf.grad for leaf in self.leaves[name]
                      if leaf.grad is not None]
@@ -241,31 +289,31 @@ class _Lockstep:
 def make_sharded_train_step(mesh: Mesh, net: UNet, loss_fn, optimizer,
                             double_step=True, chan_log_fn=None,
                             n_channels=None):
-    """The data-parallel train step: ``step(x, y, epoch=0)`` takes the
-    global batch (x (N, 1, z, y, x), y (N, C, z, y, x), N a multiple of the
-    ``data`` extent), splits x over ``data``, runs ``net.forward_shards``
-    through ``_Lockstep``,
-    takes ``loss_fn`` of the outputs gathered on the first device, sums the
-    gradients onto ``net``'s parameters and steps ``optimizer`` (twice with
-    ``double_step``, on the same gradients); then moves the running
-    statistics. Returns the loss, and with ``chan_log_fn``/``n_channels``
-    also the per-channel losses, as tensors on the first device.
+    """The data x space parallel train step: ``step(x, y, epoch=0)`` takes
+    the global batch (x (N, 1, z, y, x), y (N, C, z, y, x); ``data_sharding``'s
+    rules), splits x into the mesh's blocks, runs ``net.forward_shards``
+    through ``_Lockstep`` and ``XSplit``, takes ``loss_fn`` of the output
+    gathered on the first device, sums the gradients onto ``net``'s
+    parameters and steps ``optimizer`` (twice with ``double_step``, on the
+    same gradients); then moves the running statistics. Returns the loss,
+    and with ``chan_log_fn``/``n_channels`` also the per-channel losses, as
+    tensors on the first device.
 
     Where JAX passes the spec and threads (params, BatchNorm state,
     optimizer state) through a pure function, the port's state lives in
-    ``net`` (the master module, on the first ``data`` device, in train
-    mode) and in ``optimizer`` (over ``net``'s parameters)."""
+    ``net`` (the master module, on the mesh's first device, in train mode)
+    and in ``optimizer`` (over ``net``'s parameters)."""
     from ..train.losses import channel_losses
 
-    devices = _data_devices(mesh)
+    _, sp, devices = _grid(mesh)
     shard = data_sharding(mesh)
 
     def step(x, y, epoch=0):
         with f32_numerics():
             optimizer.zero_grad(set_to_none=True)
             lock = _Lockstep(net, devices)
-            outs = net.forward_shards(shard(x), lock)
-            out = torch.cat([o.to(devices[0]) for o in outs])
+            out = _gather(net.forward_shards(shard(x), lock, XSplit(sp)),
+                          sp, devices[0])
             y = torch.as_tensor(y).to(devices[0])
             loss = loss_fn(out, y, epoch)
             loss.backward()
@@ -287,15 +335,16 @@ def make_sharded_train_step(mesh: Mesh, net: UNet, loss_fn, optimizer,
 
 def sharded_predict_volume(model, volume, mesh: Mesh,
                            chunk_size=(10, 256, 256), margin=(1, 64, 64)):
-    """Chunk-grid inference with the chunk batch over ``data``: each batch
-    gives one chunk to each ``data`` device (the model's per-device eval
-    replica, ``UNetModel.module``), the last batch zero-padded; returns the
+    """Chunk-grid inference over the mesh: each batch gives one chunk to
+    each ``data`` row, x-split over its ``space`` devices (the chunk's x
+    must divide), run by the model's per-device eval replicas
+    (``UNetModel.module``); the last batch is zero-padded. Returns the
     (C, z, y, x) float32 numpy features. Batch b+1 is dispatched before
     batch b is assembled on the host."""
     from ..core.chunks import chunk_slices, make_chunks
 
-    devices = _data_devices(mesh)
-    dp = len(devices)
+    dp, sp, devices = _grid(mesh)
+    nets = [model.module(d) for d in devices]
     volume = np.asarray(volume, dtype=np.float32)
     zyx = volume.shape[-3:]
     chunk_size = tuple(int(min(c, s)) for c, s in zip(chunk_size, zyx))
@@ -304,24 +353,21 @@ def sharded_predict_volume(model, volume, mesh: Mesh,
     out = np.zeros((model.out_channels,) + zyx, dtype=np.float32)
 
     def dispatch(b0):
-        ys = []
-        with torch.no_grad(), f32_numerics():
-            for k, d in enumerate(devices):
-                if b0 + k < n:
-                    x = volume[chunk_slices(starts[b0 + k], chunk_size)]
-                else:
-                    x = np.zeros(chunk_size, np.float32)
-                xk = torch.from_numpy(np.ascontiguousarray(x))[None, None]
-                ys.append(model.module(d)(
-                    xk.to(d).to(model.compute_dtype)).float())
-        return ys
+        xb = np.zeros((dp, 1) + chunk_size, np.float32)
+        for k in range(min(dp, n - b0)):
+            xb[k, 0] = volume[chunk_slices(starts[b0 + k], chunk_size)]
+        blocks = _blocks(torch.from_numpy(xb), dp, sp)
+        return [y.float() for y in _eval_forward(nets, [
+            blk.to(d).to(model.compute_dtype)
+            for blk, d in zip(blocks, devices)], sp)]
 
     def assemble(ys, b0):
         for k in range(min(dp, n - b0)):
             i = b0 + k
             cr = (slice(None),) + tuple(slice(int(lo), int(hi))
                                         for lo, hi in crops[i])
-            yk = ys[k][0].cpu().numpy()
+            yk = np.concatenate([y[0].cpu().numpy()
+                                 for y in ys[k * sp:(k + 1) * sp]], -1)
             sl = (slice(None),) + chunk_slices(starts[i], chunk_size)
             out[sl][cr] = yk[cr]
 

@@ -23,12 +23,12 @@ The step (forward, loss, backward, one or two Adam steps) runs inside
 forward. Each batch is uploaded from pinned host memory without blocking,
 and batch i+1 is read and uploaded while step i runs on the card.
 
-``mesh`` / ``n_devices`` train data-parallel over a device mesh
+``mesh`` / ``n_devices`` train over a device mesh
 (``parallel.mesh.make_sharded_train_step``), after JAX: each step takes
-``data``-many chunks (the tail batch repeat-pads its last chunk), BatchNorm
-takes the statistics of the whole batch, the loss is its global mean, and a
-loss-CSV row names the step's unique chunk ids joined by ``;``. A mesh whose
-``space`` extent is above 1 raises ``NotImplementedError``.
+``data``-many chunks (the tail batch repeat-pads its last chunk), each
+chunk's x axis split over ``space``; BatchNorm takes the statistics of the
+whole batch, the loss is its global mean, and a loss-CSV row names the
+step's unique chunk ids joined by ``;``.
 
 Not ported: the JAX trainer's bit-packed label upload, which exists for a
 TPU host's thin link and gives bit-equal losses by construction.
@@ -92,7 +92,7 @@ def train_unet(
     double_step=True,
     validate_in_train_mode=True,
     seed=0,
-    # data-parallel training over a device mesh
+    # training over a device mesh (data x space)
     mesh=None,
     n_devices=None,
     *,
@@ -111,21 +111,21 @@ def train_unet(
     included), ``load_s`` (each batch's read and upload dispatch) and
     ``validation_s`` (each validation pass).
 
-    ``mesh`` (a ``parallel.mesh.Mesh``) trains data-parallel over its
-    ``data`` devices (see the module docstring); the master parameters,
-    the optimizer and validation live on its first device, and ``device``
-    is not used. ``n_devices`` builds the mesh with ``make_mesh`` over
-    the first ``n_devices`` CUDA cards, as JAX's does over its devices.
-    ``mesh=None`` keeps the batch-1 loop.
+    ``mesh`` (a ``parallel.mesh.Mesh``) trains over its data x space
+    blocks (see the module docstring); the master parameters, the
+    optimizer and validation live on its first device, and ``device`` is
+    not used. ``n_devices`` builds the mesh with ``make_mesh`` over the
+    first ``n_devices`` CUDA cards, as JAX's does over its devices (2 and 4
+    cards make a ``space`` mesh). ``mesh=None`` keeps the batch-1 loop.
     """
     from ..engine.predict import UNetModel
     from ..parallel import mesh as mesh_mod
 
     if mesh is None and n_devices is not None:
         mesh = mesh_mod.make_mesh(int(n_devices))
-    data_devices = (None if mesh is None
-                    else mesh_mod._data_devices(mesh))
-    dev = resolve_device(device if mesh is None else data_devices[0])
+    if mesh is not None:
+        dp, sp, mesh_devices = mesh_mod._grid(mesh)
+    dev = resolve_device(device if mesh is None else mesh_devices[0])
     save_output = out_dir is not None
     print("Output will be saved: ", save_output)
     print("Save directory: ", out_dir)
@@ -183,7 +183,6 @@ def train_unet(
             return ids[idxs[0]]
     else:
         # dp chunks a step, the tail batch repeat-padded (JAX parity)
-        dp = len(data_devices)
         steps = []
         for b0 in range(0, len(x), dp):
             idxs = list(range(b0, min(b0 + dp, len(x))))
@@ -193,11 +192,12 @@ def train_unet(
             chan_log_fn=chan_log_fn, n_channels=len(channels))
 
         def load_step(idxs):
-            """The step's chunks: x as one (1, 1, z, y, x) shard on each
-            data device, y whole on the first."""
+            """The step's chunks: x as the mesh's (1, 1, z, y, x / space)
+            blocks, each on its device, y whole on the first."""
             t0 = time.perf_counter()
-            xb = [_upload(load_tensor_from_zarr(0, [x[i]])[None, None], d)
-                  for i, d in zip(idxs, data_devices)]
+            xb = np.stack([load_tensor_from_zarr(0, [x[i]]) for i in idxs])
+            xb = [_upload(blk, d) for blk, d in zip(mesh_mod._blocks(
+                torch.from_numpy(xb[:, None]), dp, sp), mesh_devices)]
             yb = _upload(np.stack([load_tensor_from_zarr(0, [y[i]])
                                    for i in idxs]), dev)
             timings["load_s"].append(time.perf_counter() - t0)

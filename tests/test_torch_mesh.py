@@ -22,8 +22,7 @@ devices.
   1e-12.
 - ``train_unet(mesh=...)`` on 2·dp+1 chunks: JAX's CSV columns, rows and
   ``data_id``s; the first loss within 1e-5 relative.
-- A mesh whose ``space`` extent is above 1 raises and names the ROADMAP
-  item.
+- The ``space`` axis is held in ``tests/test_torch_space.py``.
 """
 import jax
 import jax.numpy as jnp
@@ -80,26 +79,7 @@ def test_make_mesh_needs_a_card_unless_given_devices():
             tmesh.make_mesh()
     mesh = tmesh.Mesh([["cpu"], ["cpu"]])
     assert mesh.shape == {"data": 2, "space": 1}
-    assert tmesh._data_devices(mesh) == [CPU, CPU]
-
-
-@pytest.mark.parametrize("what", ["predict", "apply", "train", "shard"])
-def test_space_mesh_raises_and_names_the_roadmap_item(params, what):
-    mesh = tmesh.make_mesh(devices=[CPU, CPU])  # _factor2(2) = (1, 2)
-    assert mesh.shape == {"data": 1, "space": 2}
-    net = params_from_numpy(params).train()
-    call = {
-        "predict": lambda: tmesh.sharded_predict_volume(
-            UNetModel(params), np.zeros((2, 16, 16), np.float32), mesh),
-        "apply": lambda: tmesh.sharded_apply(
-            tmesh.replicate_params(params, mesh), net.spec, mesh),
-        "train": lambda: tmesh.make_sharded_train_step(
-            mesh, net, tl.make_loss_function("BCELoss"),
-            torch.optim.Adam(net.parameters())),
-        "shard": lambda: tmesh.data_sharding(mesh),
-    }[what]
-    with pytest.raises(NotImplementedError, match="ROADMAP.*space"):
-        call()
+    assert tmesh._grid(mesh) == (2, 1, [CPU, CPU])
 
 
 def test_sharded_apply_equals_one_device(params):

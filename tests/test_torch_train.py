@@ -42,7 +42,6 @@ from iterseg_tpu.train.labels import get_training_labels as jax_labels
 from iterseg_tpu_torch.engine.predict import load_unet
 from iterseg_tpu_torch.models.convert import params_from_numpy
 from iterseg_tpu_torch.models.unet import UNet, UNetSpec
-from iterseg_tpu_torch.parallel.mesh import make_mesh
 from iterseg_tpu_torch.train import losses as tl
 from iterseg_tpu_torch.train import train as torch_train
 from torch_threads import two_torch_threads  # noqa: F401
@@ -364,14 +363,11 @@ def test_train_unet_without_output_and_forked(tiny_data):
 
 
 @pytest.mark.parametrize("kw,error,match", [
-    pytest.param({"mesh": make_mesh(devices=["cpu", "cpu"])},
-                 NotImplementedError, "space", id="kw0"),
     pytest.param({"mesh": object()}, TypeError, "Mesh", id="kw1"),
 ])
 def test_sharded_training_raises(tiny_data, kw, error, match):
-    """What sharded training still refuses: two devices make JAX's pure
-    ``space`` mesh (``_factor2``), whose port is a ROADMAP item, and a mesh
-    must be a ``parallel.mesh.Mesh``."""
+    """What sharded training refuses: a mesh must be a
+    ``parallel.mesh.Mesh``."""
     xs, ys = tiny_data
     with pytest.raises(error, match=match):
         torch_train.train_unet(x=xs[:1], vx=[], y=ys[:1], vy=[],
