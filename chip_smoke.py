@@ -9,8 +9,9 @@ several: phases ``multi`` and ``space`` use them all), the CUDA toolkit (``nvcc`
 ``iterseg_tpu``. Phases, each printing one JSON line:
 
 1. the card (``nvidia-smi`` name and power limit) and the build: the two
-   CUDA flood kernels (``nvcc``, sm_90a) and the host C++ floods (``g++``),
-   all started together, into ``build/iterseg_tpu_torch``;
+   CUDA flood kernels (``nvcc``, sm_90a), the host C++ floods and the zstd
+   decoder (``g++``), all started together, into
+   ``build/iterseg_tpu_torch``;
 2. kernel vs plain: the CUDA affinity flood and its plain torch version on a
    seeded smooth (33, 256, 256) fixture, and the CUDA image flood and its
    plain version on a seeded −EDT (33, 256, 256) fixture, ``inner_cap`` 1
@@ -114,7 +115,17 @@ several: phases ``multi`` and ``space`` use them all), the CUDA toolkit (``nvcc`
    ``train_unet`` on the mesh (``n_devices=`` on several cards) and the
    batch-1 loop on one card over five (10, 256, 256) chunks (ms a step,
    peak GB a card);
-15. the ``kernels`` line: each hand-written kernel timed on the inputs its
+15. ``orbax``: checkpoints without orbax (no orbax, tensorstore or
+   zstandard on this machine). The committed fixture
+   ``tests/data/torch_orbax`` (written by orbax: an OCDBT checkpoint with
+   zstd chunks and a plain one) reads equal to its ``.npz``, with the C++
+   zstd decoder's MB/s on its largest chunk; ``default_unet.npz`` goes
+   through the CLI's ``convert`` to an orbax directory and back, bit for
+   bit, with the directory's and the ``.npz``'s load seconds; and
+   ``affinity_unet_watershed(unet=<that directory>, device_flood="pallas")``
+   on phase 4's volume gives phase 4's ``"pallas"`` labels bit for bit,
+   with two affinity kernel launches;
+16. the ``kernels`` line: each hand-written kernel timed on the inputs its
    path gave it, against its plain version, with its launches on its path,
    its steps and tile-steps (equal to the plain frontier schedule's), the
    split of its time into the init kernel and the step kernel, and its
@@ -1279,6 +1290,91 @@ def kernel_vs_plain(flood, plain, launches, inputs, what, **kw):
                 "tolerance": 0}
 
 
+def run_orbax(vol, kwargs, want, work):
+    """Phase 15: orbax checkpoints read and written by the port alone;
+    returns the phase's line."""
+    import numpy as np
+    import torch
+
+    from iterseg_tpu_torch import cli
+    from iterseg_tpu_torch.engine.predict import DEFAULT_UNET_PATH
+    from iterseg_tpu_torch.engine.segmentation import affinity_unet_watershed
+    from iterseg_tpu_torch.io.ocdbt import OcdbtReader
+    from iterseg_tpu_torch.models.convert import load_checkpoint
+    from iterseg_tpu_torch.native import zstd
+    from iterseg_tpu_torch.ops import flood_kernel as fk
+
+    def same(got, ref, what):
+        check(set(got) == set(ref), f"{what}: keys differ")
+        for k in ref:
+            check(got[k].dtype == ref[k].dtype and got[k].shape == ref[k].shape
+                  and got[k].tobytes() == ref[k].tobytes(), f"{what}: {k}")
+
+    line = {"phase": "orbax"}
+    blocked = [m for m in ("orbax", "zstandard", "jax")
+               if sys.modules.get(m) is not None]
+    check(not blocked, f"the port imported {blocked}")
+    # 1. the committed fixture, written by orbax's own checkpointers
+    fixture = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "tests", "data", "torch_orbax")
+    with np.load(os.path.join(fixture, "truth.npz")) as f:
+        truth = dict(f)
+    for layout in ("ocdbt", "plain"):
+        same(load_checkpoint(os.path.join(fixture, layout)), truth, layout)
+    frame = OcdbtReader(os.path.join(fixture, "ocdbt")).read(
+        "b.conv/0.0.0.0.0")
+    size = truth["b.conv"].nbytes
+    check(zstd.decompress(frame, size).tobytes()
+          == truth["b.conv"].tobytes(), "fixture chunk decodes wrong")
+    reps = 50
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        zstd.decompress(frame, size)
+    dt = time.perf_counter() - t0
+    line["fixture"] = {"arrays": len(truth), "chunk_bytes": len(frame),
+                       "decoded_bytes": size,
+                       "decode_mb_per_s": reps * size / dt / 1e6}
+    # 2. default_unet.npz -> orbax directory -> .npz through the CLI
+    out_dir = os.path.join(work, "unet-orbax")
+    back = os.path.join(work, "back.npz")
+    check(cli.main(["convert", "--input", DEFAULT_UNET_PATH,
+                    "--output", out_dir]) == 0, "convert to orbax failed")
+    check(cli.main(["convert", "--input", out_dir, "--output", back]) == 0,
+          "convert from orbax failed")
+    ref = load_checkpoint(DEFAULT_UNET_PATH)
+    same(load_checkpoint(out_dir), ref, "orbax directory")
+    same(load_checkpoint(back), ref, "round trip")
+    seconds = {}
+    for name, path in (("orbax_dir", out_dir), ("npz", DEFAULT_UNET_PATH)):
+        seconds[name] = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            load_checkpoint(path)
+            seconds[name].append(time.perf_counter() - t0)
+    line["unet"] = {"arrays": len(ref),
+                    "values": int(sum(v.size for v in ref.values())),
+                    "dir_bytes": sum(
+                        os.path.getsize(os.path.join(d, f))
+                        for d, _, fs in os.walk(out_dir) for f in fs),
+                    "load_s": seconds}
+    # 3. the main path's "pallas" call with the U-Net from the directory
+    fk.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    labels = affinity_unet_watershed(None, vol, None, "smoke", out_dir,
+                                     device_flood="pallas", **kwargs)
+    torch.cuda.synchronize()
+    launches = fk.launches()
+    check(launches == 2, f"{launches} affinity kernel launches, not 2")
+    check(np.array_equal(labels, want), "orbax U-Net labels differ from the "
+          ".npz U-Net's")
+    line["segment"] = {"shape": list(vol.shape), "device_flood": "pallas",
+                       "kernel_launches": launches,
+                       "labels_equal_npz": True, "objects": int(labels.max()),
+                       "seconds": time.perf_counter() - t0}
+    return line
+
+
 def main():
     import torch
 
@@ -1291,6 +1387,7 @@ def main():
 
     from iterseg_tpu_torch import native
     from iterseg_tpu_torch.device import f32_numerics
+    from iterseg_tpu_torch.native import zstd
     from iterseg_tpu_torch.engine import device_pipeline as dp
     from iterseg_tpu_torch.engine.predict import load_unet, predict_volume
     from iterseg_tpu_torch.engine.segmentation import (
@@ -1306,7 +1403,7 @@ def main():
     gpu = gpu_line()
     print(gpu, flush=True)
 
-    # 1. build the three compiled libraries at once
+    # 1. build the four compiled libraries at once
     from concurrent.futures import ThreadPoolExecutor
 
     def timed(fn):
@@ -1315,10 +1412,10 @@ def main():
         return time.perf_counter() - t
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:
+    with ThreadPoolExecutor(4) as pool:
         jobs = {name: pool.submit(timed, fn) for name, fn in (
             ("affinity_flood", fk.build), ("image_flood", ifk.build),
-            ("native", native.get_lib))}
+            ("native", native.get_lib), ("zstd", zstd.get_lib))}
         each = {name: j.result() for name, j in jobs.items()}
     emit({"phase": "build", "gpu": gpu, "build_s": time.perf_counter() - t0,
           "build_s_each": each, "native_loaded": native.loaded(),
@@ -1603,7 +1700,12 @@ def main():
     for line in run_space(vol, dev, t_main):
         emit(line)
 
-    # 15. each kernel on its path's own inputs
+    # 15. orbax checkpoints without orbax; the affinity launch count set to
+    # 0 just before the segmentation and read just after
+    with tempfile.TemporaryDirectory() as work:
+        emit(run_orbax(vol, kwargs, main_labels["pallas"], work))
+
+    # 16. each kernel on its path's own inputs
     kernels = []
     for name, mod, flood, plain, calls, path_launches, line, in_bytes in (
             ("affinity_flood", fk, fk.affinity_flood,

@@ -10,7 +10,7 @@ thin argparse layer over the port's headless API:
 - ``pod-segment`` → ``parallel.multihost.multihost_segment_zarr`` (+
   ``multihost_accuracy_metrics`` with ``--gt``)
 - ``serve``    → ``engine.serve.SegmentationServer`` + ``watch``
-- ``convert``  → ``models.convert`` (``.npz`` and ``.pt``/``.pth``)
+- ``convert``  → ``models.convert`` (``.npz``, ``.pt``/``.pth``, orbax)
 - ``info``     → environment / registry report
 
 One option is the port's own: ``--device``, before the subcommand, names
@@ -257,18 +257,16 @@ def _cmd_serve(args):
 
 
 def _cmd_convert(args):
-    from .models.convert import load_checkpoint, save_checkpoint
+    from .models.convert import (load_checkpoint, save_checkpoint,
+                                 save_checkpoint_orbax)
 
-    out = str(args.output)
-    if not out.endswith((".npz", ".pt", ".pth")):
-        # models/convert.py reads and writes no orbax directory: that
-        # format needs JAX
-        raise ValueError(
-            f"{out}: orbax checkpoint directories need JAX; convert to or "
-            "from them with `python -m iterseg_tpu convert` and use the "
-            ".npz/.pt here")
     params = load_checkpoint(args.input)
-    print(save_checkpoint(params, out))
+    out = str(args.output)
+    if out.endswith((".npz", ".pt", ".pth")):
+        written = save_checkpoint(params, out)
+    else:
+        written = save_checkpoint_orbax(params, out)
+    print(written)
     return 0
 
 
@@ -440,12 +438,13 @@ def build_parser():
     p.set_defaults(fn=_cmd_serve)
 
     p = sub.add_parser("convert", help="convert U-Net checkpoints between "
-                       ".pt/.pth (torch) and .npz (native) formats (orbax "
-                       "directories need JAX)")
+                       ".pt/.pth (torch), .npz (native) and orbax "
+                       "(directory) formats")
     p.add_argument("--input", required=True,
-                   help=".npz / .pt / .pth file")
+                   help=".npz / .pt / .pth file or orbax directory")
     p.add_argument("--output", required=True,
-                   help="suffix picks the format: .npz / .pt / .pth")
+                   help="suffix picks the format: .npz / .pt / .pth, "
+                        "anything else is written as an orbax directory")
     p.set_defaults(fn=_cmd_convert)
 
     p = sub.add_parser("info", help="report torch, CUDA, devices, "

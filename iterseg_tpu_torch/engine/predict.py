@@ -96,8 +96,8 @@ class UNetModel:
 
 
 def load_unet(u_state_fn=None, compute_dtype=torch.float32) -> UNetModel:
-    """Load a U-Net checkpoint (``.npz`` or ``.pt``); ``None`` reads the
-    bundled ``iterseg_tpu/data/default_unet.npz``."""
+    """Load a U-Net checkpoint (``.npz``, ``.pt`` or an orbax directory);
+    ``None`` reads the bundled ``iterseg_tpu/data/default_unet.npz``."""
     if u_state_fn is None:
         u_state_fn = DEFAULT_UNET_PATH
         if not os.path.exists(u_state_fn):

@@ -8,8 +8,9 @@ stride=k, groups=C).weight`` — and BatchNorm running stats per channel. So
 ``params_from_numpy`` is a 1:1 ``load_state_dict`` with a strict key check;
 ``num_batches_tracked`` is synthesised, as torch expects it.
 
-Formats: ``.npz`` (native) and ``.pt``/``.pth`` (torch state dicts). Orbax
-directories need JAX and are not read by the port.
+Formats: ``.npz`` (native), ``.pt``/``.pth`` (torch state dicts) and orbax
+checkpoint directories, read and written by the port's own
+``io/orbax_ckpt.py`` (no orbax, tensorstore or JAX needed).
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
+from ..io.orbax_ckpt import read_orbax, write_orbax
 from .unet import UNet, UNetSpec
 
 __all__ = [
@@ -26,6 +28,8 @@ __all__ = [
     "params_to_numpy",
     "load_checkpoint",
     "save_checkpoint",
+    "load_checkpoint_orbax",
+    "save_checkpoint_orbax",
     "infer_spec_from_params",
 ]
 
@@ -69,7 +73,8 @@ def params_to_numpy(net: UNet) -> Dict[str, np.ndarray]:
 
 
 def load_checkpoint(path) -> Dict[str, np.ndarray]:
-    """Flat numpy params from ``.npz`` or ``.pt``/``.pth``."""
+    """Flat numpy params from ``.npz``, ``.pt``/``.pth`` or an orbax
+    directory."""
     path = str(path)
     if path.endswith(".npz"):
         with np.load(path) as data:
@@ -79,11 +84,21 @@ def load_checkpoint(path) -> Dict[str, np.ndarray]:
         return {k: v.detach().cpu().float().numpy()
                 for k, v in sd.items() if not k.endswith(_SKIP_SUFFIXES)}
     if os.path.isdir(path):
-        raise ValueError(
-            f"{path} is a directory: orbax checkpoints need JAX. Convert it "
-            "with `python -m iterseg_tpu convert --input <dir> --output "
-            "<file>.npz` and load the .npz")
+        return load_checkpoint_orbax(path)
     raise ValueError(f"unknown checkpoint format: {path}")
+
+
+def save_checkpoint_orbax(params: Mapping[str, np.ndarray], path) -> str:
+    """Save flat params as an orbax checkpoint directory (the layout orbax
+    writes with ``use_ocdbt=False``); returns its absolute path."""
+    return write_orbax({k: np.asarray(v) for k, v in params.items()}, path)
+
+
+def load_checkpoint_orbax(path) -> Dict[str, np.ndarray]:
+    """Flat numpy params from an orbax checkpoint directory (OCDBT or
+    plain). A directory without orbax's ``_METADATA`` raises
+    ``ValueError``."""
+    return read_orbax(path)
 
 
 def save_checkpoint(params: Mapping[str, np.ndarray], path) -> str:

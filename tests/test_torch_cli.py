@@ -2,8 +2,8 @@
 package's: the same subcommands and options (plus the port's ``--device``),
 DoG labels and OME metadata bit-equal to JAX's CLI run op by op, affinity
 labels bit-equal to the port's own segmenter call, ``pod-segment`` over
-two gloo processes equal to one process, and the path the port has not
-ported (orbax checkpoint directories) exiting non-zero."""
+two gloo processes equal to one process, ``convert`` through an orbax
+directory, and a directory that is no orbax checkpoint exiting non-zero."""
 import argparse
 import json
 import os
@@ -172,18 +172,16 @@ def test_convert_roundtrip(tmp_path, capsys):
     from iterseg_tpu_torch.engine.predict import DEFAULT_UNET_PATH
 
     prev = DEFAULT_UNET_PATH
-    for out in (str(tmp_path / "a.pt"), str(tmp_path / "back.npz")):
+    for out in (str(tmp_path / "a.pt"), str(tmp_path / "orbax-dir"),
+                str(tmp_path / "back.npz")):
         assert tcli.main(["convert", "--input", prev, "--output", out]) == 0
         assert capsys.readouterr().out.strip().splitlines()[-1] == out
         prev = out
+    assert (tmp_path / "orbax-dir" / "_METADATA").exists()
     final, orig = load_checkpoint(prev), load_checkpoint(DEFAULT_UNET_PATH)
     assert set(final) == set(orig)
     for k in orig:
         np.testing.assert_array_equal(final[k], orig[k])
-    with pytest.raises(ValueError, match="orbax"):
-        tcli.main(["convert", "--input", prev,
-                   "--output", str(tmp_path / "orbax-dir")])
-    assert not (tmp_path / "orbax-dir").exists()
 
 
 def test_info(capsys):
@@ -205,7 +203,7 @@ def test_segment_unknown_segmenter(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,error", [
-    pytest.param(["convert", "--input", "a.npz", "--output", "orbax-dir"],
+    pytest.param(["convert", "--input", "plain-dir", "--output", "b.npz"],
                  ValueError, id="orbax-ValueError"),
     pytest.param(["--device", "cpu", "segment", "--device-flood", "exact"],
                  None, id="flood-exact"),
@@ -215,18 +213,18 @@ def test_segment_unknown_segmenter(tmp_path, capsys):
                  None, id="flood-telemetry"),
 ])
 def test_unported_paths_raise(stack_zarrs, tmp_path, argv, error):
-    """The one path the CLI has not ported, an orbax checkpoint directory
-    (it needs JAX; ROADMAP Queue 1), raises before it reads anything. The
-    flood options run: ``exact`` and ``--flood-telemetry`` give the
-    default flood's labels, ``auto`` on the CPU is the ``"xla"`` flood
-    (``True``)."""
+    """A directory that holds no orbax checkpoint, given as ``convert
+    --input``, raises naming orbax and writes nothing. The flood options
+    run: ``exact`` and ``--flood-telemetry`` give the default flood's
+    labels, ``auto`` on the CPU is the ``"xla"`` flood (``True``)."""
     from iterseg_tpu_torch.engine.segmentation import affinity_unet_watershed
 
     if error is not None:
+        os.makedirs(tmp_path / "plain-dir")
         with pytest.raises(error, match="orbax"):
-            tcli.main([a if a != "orbax-dir" else str(tmp_path / a)
-                       for a in argv])
-        assert not (tmp_path / "orbax-dir").exists()
+            tcli.main([str(tmp_path / a) if a.endswith(("-dir", ".npz"))
+                       else a for a in argv])
+        assert not (tmp_path / "b.npz").exists()
         return
     ip, _, image = stack_zarrs
     assert tcli.main(argv + ["--input", ip, "--output-dir", str(tmp_path),
@@ -268,9 +266,12 @@ def test_serve_local_devices_raises(stack_zarrs, tmp_path, monkeypatch):
 
 
 def test_python_m_exits_non_zero_on_unported_path(tmp_path):
+    """``convert`` from a directory that is no orbax checkpoint."""
+    os.makedirs(tmp_path / "plain-dir")
     r = subprocess.run(
         [sys.executable, "-m", "iterseg_tpu_torch", "convert",
-         "--input", "a.npz", "--output", str(tmp_path / "orbax-dir")],
+         "--input", str(tmp_path / "plain-dir"),
+         "--output", str(tmp_path / "b.npz")],
         cwd=ROOT, env=cpu_subprocess_env(), capture_output=True, text=True,
         timeout=300)
     assert r.returncode != 0

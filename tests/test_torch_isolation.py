@@ -1,6 +1,6 @@
 """The port stands alone: it imports without JAX, no module of it (nor
-chip_smoke.py) imports ``iterseg_tpu``, and its entry points need CUDA
-unless the caller names another device."""
+chip_smoke.py) imports ``iterseg_tpu``, orbax or zstandard, and its entry
+points need CUDA unless the caller names another device."""
 import ast
 import pathlib
 import re
@@ -87,6 +87,24 @@ IMPORT = re.compile(r"^\s*(from|import)\s+(iterseg_tpu|jax)\b(?!_torch)",
 def test_no_jax_or_reference_imports(path):
     src = (ROOT / path).read_text()
     assert not IMPORT.findall(src), path
+
+
+CHECKPOINT_LIBS = re.compile(
+    r"^\s*(from|import)\s+(orbax|zstandard|tensorstore)\b", re.MULTILINE)
+
+
+@pytest.mark.parametrize("path", sorted(
+    [str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")]
+    + ["chip_smoke.py"]))
+def test_no_checkpoint_library_imports(path):
+    """Orbax checkpoints go through the port's own reader and writer: no
+    module imports orbax or zstandard, and tensorstore only in
+    ``io/zarr_io.py``, whose volumes fall back to ``io/zarr_mini.py``
+    without it."""
+    found = {m[1] for m in CHECKPOINT_LIBS.findall((ROOT / path).read_text())}
+    allowed = ({"tensorstore"} if path == "iterseg_tpu_torch/io/zarr_io.py"
+               else set())
+    assert found <= allowed, (path, found)
 
 
 OFF_CARD = {"pandas", "PIL", "matplotlib", "seaborn", "napari", "magicgui"}
