@@ -47,7 +47,6 @@ verified exact image flood on ``-d²``.
 from __future__ import annotations
 
 import contextlib
-import time
 
 import numpy as np
 import torch
@@ -57,6 +56,7 @@ from ..device import f32_numerics, resolve_device
 from ..ops.cc import size_band_filter
 from ..ops.filters import maximum_filter
 from ..ops.watershed_oracle import neighbor_offsets
+from ..utils import carried, count, frame_span, group, recording, span
 from .. import native
 
 __all__ = ["AffinityPipeline", "DoGPipeline", "get_feature_program",
@@ -91,8 +91,10 @@ class _HostCopy:
     """A device tensor on its way to host memory: a non-blocking copy into
     pinned memory on the tensor's card's current stream, fenced by an
     event. ``get()`` waits for that event only, so a thread may wait on it
-    while later work runs on the stream. ``tensor`` is the device tensor.
-    CPU tensors pass through."""
+    while later work runs on the stream, and hands its pinned buffer to the
+    array it returns: a copy is read once, and the buffer is freed (which
+    records CUDA events) when that array goes, inside the span that last
+    uses it. ``tensor`` is the device tensor. CPU tensors pass through."""
 
     def __init__(self, t: torch.Tensor):
         self.tensor = t
@@ -110,7 +112,8 @@ class _HostCopy:
     def get(self) -> np.ndarray:
         if self._event is not None:
             self._event.synchronize()
-        return self._host.numpy()
+        host, self._host = self._host, None
+        return host.numpy()
 
 
 def _host(x) -> np.ndarray:
@@ -126,7 +129,8 @@ class _Speculative:
     the two, not their sum. The worker touches only its own buffers and
     the pipeline's host scatter buffer (which the main thread does not use
     in that mode), waits only on the gather's own event (``_HostCopy``),
-    and the caller always joins it before returning."""
+    and the caller always joins it before returning. Its spans carry the
+    caller's call and frame."""
 
     def __init__(self, fn):
         import threading
@@ -142,7 +146,8 @@ class _Speculative:
                 self._exc = e
 
         self._thread = threading.Thread(
-            target=run, name="iterseg-speculative-flood", daemon=True)
+            target=carried(run), name="iterseg-speculative-flood",
+            daemon=True)
 
     def start(self):
         self._thread.start()
@@ -217,14 +222,15 @@ def _prepare_frame(raw):
 
 
 def _drive_stack(stack, output_labels, skip_labelled, devices,
-                 dispatch_one, finalize_one):
+                 dispatch_one, finalize_one, own_device=None):
     """Pipelined 4D drive: frame t+1's device work is dispatched before
     frame t's host finalisation, with warm-restart skipping of labelled
     frames. ``devices``: frames round-robin over the list (frame
     parallelism), with the dispatch lookahead widened to its length so
-    every card has a frame queued; ``None`` is the pipeline's own device.
-    ``dispatch_one(t, device)`` returns a job, ``finalize_one(job)`` the
-    frame's labels; both run under the frame's device guard."""
+    every card has a frame queued; ``None`` is the pipeline's own device,
+    ``own_device``. ``dispatch_one(t, device)`` returns a job,
+    ``finalize_one(job)`` the frame's labels; both run under the frame's
+    device guard and its ``frame`` span."""
     todo = [t for t in range(stack.shape[0])
             if not (skip_labelled and np.any(np.asarray(output_labels[t])))]
     lookahead = 1 if devices is None else len(devices)
@@ -235,12 +241,16 @@ def _drive_stack(stack, output_labels, skip_labelled, devices,
             t = todo[next_dispatch]
             device = (None if devices is None
                       else devices[next_dispatch % len(devices)])
-            with _on(device):
-                pending.append((t, device, dispatch_one(t, device)))
+            frame = frame_span(t, own_device if device is None else device)
+            with _on(device), frame:
+                pending.append((t, device, frame, dispatch_one(t, device)))
             next_dispatch += 1
-        jt, device, job = pending.pop(0)
-        with _on(device):
-            output_labels[jt] = finalize_one(job)
+        jt, device, frame, job = pending.pop(0)
+        with _on(device), frame:
+            labels = finalize_one(job)
+            with span("restore"):
+                output_labels[jt] = labels
+        frame.close()
         yield jt
 
 
@@ -344,6 +354,7 @@ def get_feature_program(model, zyx, chunk_size=(10, 256, 256),
     """The chunked-forward program for this model and geometry.
     ``microbatch=None`` resolves through ``predict._pick_batch_size`` so the
     fast and the generic path run the same batch (part of the numerics)."""
+    count("feature_programs")
     zyx = tuple(int(s) for s in zyx)
     chunk_size = tuple(int(c) for c in chunk_size)
     margin = tuple(int(m) for m in margin)
@@ -546,40 +557,40 @@ class AffinityPipeline:
         cropped shape, or ``None`` when the flood did not converge (the
         caller then runs the exact host flood)."""
         global _flood_fallbacks
-        t0 = time.perf_counter()
         pshape = mask_pad.shape
         n = len(centroids)
-        mask_dev, seeds_dev = self._upload_mask_seeds(aff_pad, mask_pad,
-                                                      centroids, profile)
-        t0 = _tick(profile, "upload_mask_seeds", t0)
-        if self.device_flood == "pallas":
-            from ..ops.flood_kernel import affinity_flood
+        with span("upload_mask_seeds", profile):
+            mask_dev, seeds_dev = self._upload_mask_seeds(
+                aff_pad, mask_pad, centroids, profile)
+        with span("device_flood", profile):
+            if self.device_flood == "pallas":
+                from ..ops.flood_kernel import affinity_flood
 
-            lab_dev, n_steps, conv = affinity_flood(
-                aff_pad, seeds_dev, mask_dev,
-                max_launches=_FLOOD_MAX_LAUNCHES, inner_cap=1)
-            key = "flood_launches"  # steps of the one persistent launch
-        else:
-            from ..ops.device_flood import wavefront_flood
+                lab_dev, n_steps, conv = affinity_flood(
+                    aff_pad, seeds_dev, mask_dev,
+                    max_launches=_FLOOD_MAX_LAUNCHES, inner_cap=1)
+                key = "flood_launches"  # steps of the one persistent launch
+            else:
+                from ..ops.device_flood import wavefront_flood
 
-            lab_dev, n_steps, conv = wavefront_flood(
-                aff_pad, seeds_dev, mask_dev, mode="claim", max_iters=512)
-            key = "flood_iters"
-        if profile is not None:
-            profile[key] = n_steps
-        t0 = _tick(profile, "device_flood", t0)
+                lab_dev, n_steps, conv = wavefront_flood(
+                    aff_pad, seeds_dev, mask_dev, mode="claim",
+                    max_iters=512)
+                key = "flood_iters"
+            if profile is not None:
+                profile[key] = n_steps
         if self.flood_telemetry and profile is not None:
-            _telemetry(aff_pad, seeds_dev, mask_dev, lab_dev, profile)
-            t0 = _tick(profile, "flood_telemetry", t0)
+            with span("flood_telemetry", profile):
+                _telemetry(aff_pad, seeds_dev, mask_dev, lab_dev, profile)
         if not conv:
             _flood_fallbacks += 1
             if profile is not None:
                 profile["flood_fallback"] = True
             return None
-        wire = _crop_cast(lab_dev, wide=n >= 2 ** 16)
-        _moved(profile, "bytes_labels", wire)
-        labels = _host(wire).astype(np.int32)
-        _tick(profile, "download_labels", t0)
+        with span("download_labels", profile):
+            wire = _crop_cast(lab_dev, wide=n >= 2 ** 16)
+            _moved(profile, "bytes_labels", wire)
+            labels = _host(wire).astype(np.int32)
         return _into(out, pshape, labels)
 
     def _flood_exact(self, aff_pad, mask_pad, centroids, out=None,
@@ -604,11 +615,13 @@ class AffinityPipeline:
                 profile["flood_tie_frac_scope"] = "prefilter"
                 profile["flood_exact_path"] = "fallback:tie-density"
             return None
-        t0 = time.perf_counter()
         pshape = mask_pad.shape
         n = len(centroids)
-        mask_dev, seeds_dev = self._upload_mask_seeds(aff_pad, mask_pad,
-                                                      centroids, profile)
+        # this mode's phases; ``profile`` takes some of them below
+        phases = None if profile is None else {}
+        with span("upload_mask_seeds", phases):
+            mask_dev, seeds_dev = self._upload_mask_seeds(
+                aff_pad, mask_pad, centroids, profile)
         spec = None
         if gather is not None:
             pre_idx, m, vals = gather
@@ -616,21 +629,21 @@ class AffinityPipeline:
                 pre_idx, m, vals, mask_pad, centroids, out=None,
                 profile=prof))
             spec.start()
-        tc = time.perf_counter()
         try:
-            lab_dev, resolved, unc_count, n_mask, tie_frac = (
-                verified_exact_flood(aff_pad, seeds_dev, mask_dev,
-                                     tie_probe=TIE_PROBE_DEFAULT))
+            with span("flood_certificate", phases):
+                lab_dev, resolved, unc_count, n_mask, tie_frac = (
+                    verified_exact_flood(aff_pad, seeds_dev, mask_dev,
+                                         tie_probe=TIE_PROBE_DEFAULT))
         finally:
-            t_cert = time.perf_counter()
             # the worker's labels are proven equal to resolved device labels
-            spec_labels, spec_prof = (spec.join() if spec is not None
-                                      else (None, {}))
+            with span("flood_spec_waited", phases):
+                spec_labels, spec_prof = (spec.join() if spec is not None
+                                          else (None, {}))
         path = _exact_path(profile, resolved, unc_count, n_mask, tie_frac)
         if profile is not None:
-            profile["flood_certificate"] = t_cert - tc
+            profile["flood_certificate"] = phases["flood_certificate"]
             if spec is not None:
-                profile["flood_spec_waited"] = time.perf_counter() - t_cert
+                profile["flood_spec_waited"] = phases["flood_spec_waited"]
         if path.startswith("fallback"):
             if spec is None:
                 return None
@@ -641,12 +654,11 @@ class AffinityPipeline:
             return _into(out, pshape, spec_labels)
         if profile is not None:
             profile["device_flood"] = profile.get("device_flood", 0.0) + (
-                t_cert - t0)
-        t0 = time.perf_counter()
-        wire = _crop_cast(lab_dev, wide=n >= 2 ** 16)
-        _moved(profile, "bytes_labels", wire)
-        labels = _host(wire).astype(np.int32)
-        _tick(profile, "download_labels", t0)
+                phases["upload_mask_seeds"] + phases["flood_certificate"])
+        with span("download_labels", profile):
+            wire = _crop_cast(lab_dev, wide=n >= 2 ** 16)
+            _moved(profile, "bytes_labels", wire)
+            labels = _host(wire).astype(np.int32)
         return _into(out, pshape, labels)
 
     def segment_stack(self, stack, output_labels, skip_labelled=True,
@@ -660,19 +672,22 @@ class AffinityPipeline:
         from ..core.volume import restore_labels
 
         def dispatch_one(t, device):
-            raw = np.asarray(stack[t])
-            vol, kept, dev_norm = _prepare_frame(raw)
-            outs = self._device_outputs(
-                vol, device=device, normalize=True if dev_norm else None)
+            with span("dispatch", profile, "device_program"):
+                raw = np.asarray(stack[t])
+                vol, kept, dev_norm = _prepare_frame(raw)
+                outs = self._device_outputs(
+                    vol, device=device, normalize=True if dev_norm else None)
             return vol.shape, outs, kept, raw.shape
 
         def finalize_one(job):
             zyx, outs, kept, orig_shape = job
             labels = self._finalize(zyx, outs, profile=profile)
-            return restore_labels(labels, kept, orig_shape)
+            with span("restore"):
+                return restore_labels(labels, kept, orig_shape)
 
         yield from _drive_stack(stack, output_labels, skip_labelled,
-                                devices, dispatch_one, finalize_one)
+                                devices, dispatch_one, finalize_one,
+                                self.device)
 
     def segment(self, volume, out=None, profile=None):
         """Instance labels (int32, ``volume.shape``) for one prepared zyx
@@ -688,81 +703,87 @@ class AffinityPipeline:
         else:
             volume = np.ascontiguousarray(volume, dtype=np.float32)
         zyx = volume.shape
-        t0 = time.perf_counter()
-        outs = self._device_outputs(volume)
-        _host(outs[3])  # fence: the count comes from the end of the program
-        _tick(profile, "device_program", t0)
+        with span("dispatch", profile, "device_program"):
+            outs = self._device_outputs(volume)
         return self._finalize(zyx, outs, out=out, profile=profile)
 
     def _finalize(self, zyx, outs, out=None, profile=None):
-        """Host half: unpack the mask, spacing, size filter, masked affinity
-        gather, flood. The gather is taken at the pre-filter mask (a
-        superset of what the flood reads), so its download runs under the
-        host's spacing and size-filter work."""
+        """Host half: wait for the device, unpack the mask, spacing, size
+        filter, masked affinity gather, flood. The gather is taken at the
+        pre-filter mask (a superset of what the flood reads), so its
+        download runs under the host's spacing and size-filter work."""
         from ..ops.peaks import _ensure_spacing
 
         aff_pad, mask_packed, order, n_cand, thresh, cent_smooth = outs
-        t0 = time.perf_counter()
-        nvox = int(np.prod(zyx))
-        n_cand = int(_host(n_cand))
-        overflow = n_cand > self.cand_capacity
-        order_small = None if overflow else _HostCopy(order[:n_cand])
-        mask_u8 = np.unpackbits(_host(mask_packed))[:nvox].reshape(zyx)
-        _moved(profile, "bytes_mask", mask_packed)
-        mask_pad = np.pad(mask_u8, 1)
-        t0 = _tick(profile, "download_mask_cands", t0)
-        exact = self.device_flood == "exact"
-        # exact mode: the tie probe on the device-resident outputs, read
-        # after the host filter work it hides under
-        if exact:
-            probe = _tie_probe(mask_packed.tensor if isinstance(
-                mask_packed, _HostCopy) else mask_packed, aff_pad)
-        if not self.device_flood or exact:
-            # the gather at the pre-filter mask downloads under the host's
-            # spacing and size filter (in exact mode it is the fallback's
-            # input, and the speculative host flood's)
-            pre_idx, m, vals = self._dispatch_gather(aff_pad, mask_pad,
-                                                     profile)
-            t0 = _tick(profile, "gather_dispatch", t0)
-        if overflow:
-            from ..ops.peaks import peak_local_max
+        with group("finalize"):
+            with span("device_wait", profile, "device_program"):
+                n_cand = int(_host(n_cand))
+            with span("download_mask_cands", profile):
+                nvox = int(np.prod(zyx))
+                overflow = n_cand > self.cand_capacity
+                order_small = None if overflow else _HostCopy(order[:n_cand])
+                mask_u8 = np.unpackbits(_host(mask_packed))[:nvox].reshape(
+                    zyx)
+                _moved(profile, "bytes_mask", mask_packed)
+                mask_pad = np.pad(mask_u8, 1)
+            exact = self.device_flood == "exact"
+            if not self.device_flood or exact:
+                with span("gather_dispatch", profile):
+                    # exact mode: the tie probe on the device-resident
+                    # outputs, read after the host filter work it hides
+                    # under
+                    if exact:
+                        probe = _tie_probe(mask_packed.tensor if isinstance(
+                            mask_packed, _HostCopy) else mask_packed,
+                            aff_pad)
+                    # the gather at the pre-filter mask downloads under the
+                    # host's spacing and size filter (in exact mode it is
+                    # the fallback's input, and the speculative host
+                    # flood's)
+                    pre_idx, m, vals = self._dispatch_gather(
+                        aff_pad, mask_pad, profile)
+            with span("host_spacing", profile):
+                if overflow:
+                    from ..ops.peaks import peak_local_max
 
-            cand_coords = peak_local_max(cent_smooth, threshold_abs=0.04)
-        else:
-            idx_sorted = _host(order_small)[:n_cand]
-            cand_coords = np.stack(np.unravel_index(idx_sorted, zyx), axis=1)
-        centroids = _ensure_spacing(cand_coords, spacing=1) + 1
-        t0 = _tick(profile, "host_spacing", t0)
-        try:
-            mask_pad = native.band_filter_cc6(mask_pad, 10, 10000000)
-            if len(centroids):
-                centroids = centroids[mask_pad[tuple(centroids.T)]]
-        except native.NativeUnavailable:
-            mask_pad, centroids = size_band_filter(
-                mask_pad.view(np.bool_), centroids,
-                min_area=10, max_area=10000000,
-            )
-        t0 = _tick(profile, "host_mask_filter", t0)
-        if self.device_flood:
-            if len(centroids):
-                if exact:
-                    labels = self._flood_exact(
-                        aff_pad, mask_pad, centroids, out=out,
-                        profile=profile, pre_tie_frac=float(probe),
-                        gather=((pre_idx, m, vals) if self.speculative_flood
-                                else None))
+                    cand_coords = peak_local_max(cent_smooth,
+                                                 threshold_abs=0.04)
                 else:
-                    labels = self._flood_on_device(
-                        aff_pad, mask_pad, centroids, out=out,
-                        profile=profile)
-                if labels is not None:
-                    return labels
-            if not exact:
-                pre_idx, m, vals = self._dispatch_gather(aff_pad, mask_pad,
-                                                         profile)
-                t0 = _tick(profile, "gather_dispatch", t0)
-        return self._host_flood(pre_idx, m, vals, mask_pad, centroids,
-                                out=out, profile=profile)
+                    cand_coords = np.stack(np.unravel_index(
+                        _host(order_small)[:n_cand], zyx), axis=1)
+                centroids = _ensure_spacing(cand_coords, spacing=1) + 1
+            with span("host_mask_filter", profile):
+                try:
+                    mask_pad = native.band_filter_cc6(mask_pad, 10, 10000000)
+                    if len(centroids):
+                        centroids = centroids[mask_pad[tuple(centroids.T)]]
+                except native.NativeUnavailable:
+                    mask_pad, centroids = size_band_filter(
+                        mask_pad.view(np.bool_), centroids,
+                        min_area=10, max_area=10000000,
+                    )
+            if self.device_flood:
+                if len(centroids):
+                    if exact:
+                        with span("tie_probe"):
+                            tie_frac = float(probe)
+                        labels = self._flood_exact(
+                            aff_pad, mask_pad, centroids, out=out,
+                            profile=profile, pre_tie_frac=tie_frac,
+                            gather=((pre_idx, m, vals)
+                                    if self.speculative_flood else None))
+                    else:
+                        labels = self._flood_on_device(
+                            aff_pad, mask_pad, centroids, out=out,
+                            profile=profile)
+                    if labels is not None:
+                        return labels
+                if not exact:
+                    with span("gather_dispatch", profile):
+                        pre_idx, m, vals = self._dispatch_gather(
+                            aff_pad, mask_pad, profile)
+            return self._host_flood(pre_idx, m, vals, mask_pad, centroids,
+                                    out=out, profile=profile)
 
     def _host_flood(self, pre_idx, m, vals, mask_pad, centroids, out=None,
                     profile=None):
@@ -772,47 +793,47 @@ class AffinityPipeline:
         int32 labels. Also the speculative body of ``_flood_exact``, then
         with ``out=None`` (the caller copies into ``out`` after the
         join)."""
-        t0 = time.perf_counter()
-        vals = _host(vals)[:, :m]
-        t0 = _tick(profile, "gather_affinities", t0)
-        pshape = mask_pad.shape
-        # every index the flood reads (in-mask voxels of this call) is
-        # written below, so stale values from an earlier frame are never
-        # consumed
-        if self._aff_host[0] != pshape:
-            self._aff_host = (pshape,
-                              np.empty((3, mask_pad.size), np.float32))
-        aff_host = self._aff_host[1]
-        aff_host[:, pre_idx] = vals
-        offsets, axes = neighbor_offsets(pshape)
-        n_half = len(offsets) // 2
-        val_off = offsets.copy()
-        val_off[:n_half] = 0
-        if out is None:
-            output = np.zeros(mask_pad.size, np.int32)
-        else:
-            output = out
-            output[:] = 0
-        if len(centroids):
-            markers = np.ravel_multi_index(tuple(centroids.T), pshape)
-            output[markers] = np.arange(len(markers), dtype=np.int32) + 1
-            try:
-                native.priority_flood(
-                    aff_host, offsets, axes, val_off,
-                    markers.astype(np.int64),
-                    np.zeros(len(markers), np.float32),
-                    mask_pad.ravel(), output,
-                )
-            except native.NativeUnavailable:
-                from ..ops import watershed_oracle as oracle
-
+        with span("gather_affinities", profile):
+            vals = _host(vals)[:, :m]
+        with span("flood", profile):
+            pshape = mask_pad.shape
+            # every index the flood reads (in-mask voxels of this call) is
+            # written below, so stale values from an earlier frame are
+            # never consumed
+            if self._aff_host[0] != pshape:
+                self._aff_host = (pshape,
+                                  np.empty((3, mask_pad.size), np.float32))
+            aff_host = self._aff_host[1]
+            aff_host[:, pre_idx] = vals
+            del vals  # its pinned buffer is freed here, inside the span
+            offsets, axes = neighbor_offsets(pshape)
+            n_half = len(offsets) // 2
+            val_off = offsets.copy()
+            val_off[:n_half] = 0
+            if out is None:
+                output = np.zeros(mask_pad.size, np.int32)
+            else:
+                output = out
                 output[:] = 0
-                oracle.affinity_flood_py(
-                    aff_host.reshape((3,) + pshape), centroids,
-                    mask_pad.view(np.bool_), output=output,
-                )
-        _tick(profile, "flood", t0)
-        return output.reshape(pshape)[1:-1, 1:-1, 1:-1]
+            if len(centroids):
+                markers = np.ravel_multi_index(tuple(centroids.T), pshape)
+                output[markers] = np.arange(len(markers), dtype=np.int32) + 1
+                try:
+                    native.priority_flood(
+                        aff_host, offsets, axes, val_off,
+                        markers.astype(np.int64),
+                        np.zeros(len(markers), np.float32),
+                        mask_pad.ravel(), output,
+                    )
+                except native.NativeUnavailable:
+                    from ..ops import watershed_oracle as oracle
+
+                    output[:] = 0
+                    oracle.affinity_flood_py(
+                        aff_host.reshape((3,) + pshape), centroids,
+                        mask_pad.view(np.bool_), output=output,
+                    )
+            return output.reshape(pshape)[1:-1, 1:-1, 1:-1]
 
 
 class DoGPipeline:
@@ -901,10 +922,8 @@ class DoGPipeline:
 
     def _segment(self, volume, out=None, profile=None, normalize=False):
         volume = np.asarray(volume)
-        t0 = time.perf_counter()
-        outs = self._device_outputs(volume, normalize=normalize)
-        _host(outs[2])  # fence: the count comes from the end of the program
-        _tick(profile, "device_program", t0)
+        with span("dispatch", profile, "device_program"):
+            outs = self._device_outputs(volume, normalize=normalize)
         return self._finalize(volume.shape, outs, out=out, profile=profile)
 
     def segment_stack(self, stack, output_labels, skip_labelled=True,
@@ -918,19 +937,23 @@ class DoGPipeline:
         from ..core.volume import restore_labels
 
         def dispatch_one(t, device):
-            raw = np.asarray(stack[t])
-            vol, kept, dev_norm = _prepare_frame(raw)
-            outs = self._device_outputs(vol, device=device,
-                                        normalize=dev_norm)
+            with span("dispatch", profile, "device_program"):
+                raw = np.asarray(stack[t])
+                vol, kept, dev_norm = _prepare_frame(raw)
+                outs = self._device_outputs(vol, device=device,
+                                            normalize=dev_norm)
             return vol.shape, outs, kept, raw.shape
 
         def finalize_one(job):
             zyx, outs, kept, orig_shape = job
             padded = self._finalize(zyx, outs, profile=profile)
-            return restore_labels(padded[1:-1, 1:-1, 1:-1], kept, orig_shape)
+            with span("restore"):
+                return restore_labels(padded[1:-1, 1:-1, 1:-1], kept,
+                                      orig_shape)
 
         yield from _drive_stack(stack, output_labels, skip_labelled,
-                                devices, dispatch_one, finalize_one)
+                                devices, dispatch_one, finalize_one,
+                                self.device)
 
     @staticmethod
     def _mask_seeds(mask_packed, dist_sq, markers, profile=None):
@@ -957,44 +980,42 @@ class DoGPipeline:
         labels, or ``None`` when the flood did not converge (the caller then
         runs the exact host flood)."""
         global _flood_fallbacks
-        t0 = time.perf_counter()
-        mask_dev, seeds_dev = self._mask_seeds(mask_packed, dist_sq, markers,
-                                               profile)
-        # f32 sqrt is correctly rounded, like the host's f64 sqrt cast to
-        # f32, so these are the host path's priorities
-        values = -torch.sqrt(dist_sq)
-        t0 = _tick(profile, "upload_mask_seeds", t0)
-        if self.device_flood == "pallas":
-            from ..ops.image_flood_kernel import image_flood
+        with span("upload_mask_seeds", profile):
+            mask_dev, seeds_dev = self._mask_seeds(mask_packed, dist_sq,
+                                                   markers, profile)
+            # f32 sqrt is correctly rounded, like the host's f64 sqrt cast
+            # to f32, so these are the host path's priorities
+            values = -torch.sqrt(dist_sq)
+        with span("device_flood", profile):
+            if self.device_flood == "pallas":
+                from ..ops.image_flood_kernel import image_flood
 
-            lab_dev, n_steps, conv = image_flood(
-                values, seeds_dev, mask_dev,
-                max_launches=_FLOOD_MAX_LAUNCHES, inner_cap=1)
-            key = "flood_launches"  # steps of the one persistent launch
-        else:
-            from ..ops.device_flood import wavefront_image_flood_core
+                lab_dev, n_steps, conv = image_flood(
+                    values, seeds_dev, mask_dev,
+                    max_launches=_FLOOD_MAX_LAUNCHES, inner_cap=1)
+                key = "flood_launches"  # steps of the one persistent launch
+            else:
+                from ..ops.device_flood import wavefront_image_flood_core
 
-            lab_dev, n_steps, conv = wavefront_image_flood_core(
-                values, seeds_dev, mask_dev, mode="claim", max_iters=512)
-            key = "flood_iters"
-        if profile is not None:
-            profile[key] = n_steps
-        t0 = _tick(profile, "device_flood", t0)
+                lab_dev, n_steps, conv = wavefront_image_flood_core(
+                    values, seeds_dev, mask_dev, mode="claim", max_iters=512)
+                key = "flood_iters"
+            if profile is not None:
+                profile[key] = n_steps
         if not conv:
             _flood_fallbacks += 1
             if profile is not None:
                 profile["flood_fallback"] = True
             return None
-        return self._download(lab_dev, markers, profile, t0)
+        return self._download(lab_dev, markers, profile)
 
     @staticmethod
-    def _download(lab_dev, markers, profile, t0):
-        wide = int(markers.max(initial=0)) >= 2 ** 16
-        wire = lab_dev.to(torch.int32 if wide else torch.uint16)
-        _moved(profile, "bytes_labels", wire)
-        labels = _host(wire).astype(np.int32)
-        _tick(profile, "download_labels", t0)
-        return labels
+    def _download(lab_dev, markers, profile):
+        with span("download_labels", profile):
+            wide = int(markers.max(initial=0)) >= 2 ** 16
+            wire = lab_dev.to(torch.int32 if wide else torch.uint16)
+            _moved(profile, "bytes_labels", wire)
+            return _host(wire).astype(np.int32)
 
     def _flood_exact(self, mask_packed, dist_sq, markers, profile=None):
         """``device_flood="exact"``: the verified exact image flood
@@ -1009,57 +1030,45 @@ class DoGPipeline:
         from ..ops.flood_exact import (TIE_PROBE_DEFAULT,
                                        verified_exact_image_flood)
 
-        t0 = time.perf_counter()
-        mask_dev, seeds_dev = self._mask_seeds(mask_packed, dist_sq, markers,
-                                               profile)
-        tc = time.perf_counter()
-        lab_dev, resolved, unc_count, n_mask, tie_frac = (
-            verified_exact_image_flood(-dist_sq, seeds_dev, mask_dev,
-                                       tie_probe=TIE_PROBE_DEFAULT))
-        max_key = int(torch.where(mask_dev, dist_sq, 0).max().to(
-            torch.int32))
+        # this mode's phases; ``profile`` takes some of them below
+        phases = None if profile is None else {}
+        with span("upload_mask_seeds", phases):
+            mask_dev, seeds_dev = self._mask_seeds(mask_packed, dist_sq,
+                                                   markers, profile)
+        with span("flood_certificate", phases):
+            lab_dev, resolved, unc_count, n_mask, tie_frac = (
+                verified_exact_image_flood(-dist_sq, seeds_dev, mask_dev,
+                                           tie_probe=TIE_PROBE_DEFAULT))
+            max_key = int(torch.where(mask_dev, dist_sq, 0).max().to(
+                torch.int32))
         path = _exact_path(profile, resolved, unc_count, n_mask, tie_frac,
                            max_key=max_key)
         if profile is not None:
-            profile["flood_certificate"] = time.perf_counter() - tc
+            profile["flood_certificate"] = phases["flood_certificate"]
         if path.startswith("fallback"):
             return None
-        t0 = _tick(profile, "device_flood", t0)
-        return self._download(lab_dev, markers, profile, t0)
+        if profile is not None:
+            profile["device_flood"] = profile.get("device_flood", 0.0) + (
+                phases["upload_mask_seeds"] + phases["flood_certificate"])
+        return self._download(lab_dev, markers, profile)
 
     def _finalize(self, zyx, outs, out=None, profile=None):
-        """Host half: blob pruning, seed labelling and the seeded flood on
-        the EDT landscape. Returns int32 labels of zyx + 2."""
+        """Host half: wait for the device, blob pruning, seed labelling and
+        the seeded flood on the EDT landscape. Returns int32 labels of
+        zyx + 2."""
         from ..ops.blob import _prune_blobs
         from ..ops.cc import label_np
         from ..ops.peaks import _ensure_spacing
 
         mask_packed, order, n_cand, dist_sq, cube = outs
-        t0 = time.perf_counter()
         pshape = tuple(int(s) + 2 for s in zyx)
         nvox = int(np.prod(pshape))
-        n_cand = int(_host(n_cand))
-        cube_shape = pshape + (len(self.sigma_list) - 1,)
-        if n_cand > self.cand_capacity:
-            # overflow: the ranking past the capacity was dropped on the
-            # device, so recompute the full candidate order on the host
-            # from the cube — the same stable argsort of the same f32 scores
-            from scipy.ndimage import maximum_filter as ndi_max
 
-            cube_np = _host(cube)
-            cand = cube_np == ndi_max(cube_np, size=3, mode="nearest")
-            cand &= cube_np > np.float32(self.threshold)
-            scores = np.where(cand, -cube_np, np.inf).ravel()
-            idx_sorted = np.argsort(scores, kind="stable")[:n_cand]
-        else:
-            idx_sorted = _host(order[:n_cand])
-        coords4 = np.stack(np.unravel_index(idx_sorted, cube_shape), axis=1)
-        mask = None
-        if not self.device_flood:
+        def unpack_mask():
             mask = np.unpackbits(_host(mask_packed))[:nvox].view(
                 np.bool_).reshape(pshape)
             _moved(profile, "bytes_mask", mask_packed)
-        t0 = _tick(profile, "download", t0)
+            return mask
 
         def dispatch_gather(mask):
             """Masked d² gather (the host flood reads distances at masked
@@ -1071,39 +1080,58 @@ class DoGPipeline:
             _moved(profile, "bytes_gather", vals)
             return len(dev_idx), vals
 
-        if mask is not None:
-            m, vals = dispatch_gather(mask)
-            t0 = _tick(profile, "gather_dispatch", t0)
+        with group("finalize"):
+            with span("device_wait", profile, "device_program"):
+                n_cand = int(_host(n_cand))
+            with span("download", profile):
+                cube_shape = pshape + (len(self.sigma_list) - 1,)
+                if n_cand > self.cand_capacity:
+                    # overflow: the ranking past the capacity was dropped on
+                    # the device, so recompute the full candidate order on
+                    # the host from the cube — the same stable argsort of
+                    # the same f32 scores
+                    from scipy.ndimage import maximum_filter as ndi_max
 
-        coords4 = _ensure_spacing(coords4, spacing=1)
-        lm = coords4.astype(np.float64)
-        sigmas = self.sigma_list[coords4[:, -1]][:, None]
-        blobs = _prune_blobs(np.hstack([lm[:, :-1], sigmas]), 0.5,
-                             sigma_dim=1)
-        centroids = np.zeros(pshape, dtype=bool)
-        if len(blobs):
-            centroids[tuple(blobs.T.astype(int))[:-1]] = True
-        markers, _ = label_np(centroids)
-        t0 = _tick(profile, "host_blobs", t0)
-
-        if self.device_flood:
-            flood = (self._flood_exact if self.device_flood == "exact"
-                     else self._flood_on_device)
-            labels = flood(mask_packed, dist_sq, markers, profile=profile)
-            if labels is not None:
-                if out is not None:
+                    cube_np = _host(cube)
+                    cand = cube_np == ndi_max(cube_np, size=3, mode="nearest")
+                    cand &= cube_np > np.float32(self.threshold)
+                    scores = np.where(cand, -cube_np, np.inf).ravel()
+                    idx_sorted = np.argsort(scores, kind="stable")[:n_cand]
+                else:
+                    idx_sorted = _host(order[:n_cand])
+                coords4 = np.stack(np.unravel_index(idx_sorted, cube_shape),
+                                   axis=1)
+                mask = None if self.device_flood else unpack_mask()
+            if mask is not None:
+                with span("gather_dispatch", profile):
+                    m, vals = dispatch_gather(mask)
+            with span("host_blobs", profile):
+                coords4 = _ensure_spacing(coords4, spacing=1)
+                lm = coords4.astype(np.float64)
+                sigmas = self.sigma_list[coords4[:, -1]][:, None]
+                blobs = _prune_blobs(np.hstack([lm[:, :-1], sigmas]), 0.5,
+                                     sigma_dim=1)
+                centroids = np.zeros(pshape, dtype=bool)
+                if len(blobs):
+                    centroids[tuple(blobs.T.astype(int))[:-1]] = True
+                markers, _ = label_np(centroids)
+            labels = None
+            if self.device_flood:
+                flood = (self._flood_exact if self.device_flood == "exact"
+                         else self._flood_on_device)
+                labels = flood(mask_packed, dist_sq, markers, profile=profile)
+                if labels is None:
+                    # the exact host flood: unpack the mask and gather now
+                    with span("gather_dispatch", profile):
+                        mask = unpack_mask()
+                        m, vals = dispatch_gather(mask)
+            if labels is None:
+                labels = self._host_flood(mask, markers, m, vals,
+                                          profile=profile)
+            if out is not None:
+                with span("restore"):
                     out[...] = labels
-                return labels
-            # the exact host flood: unpack the mask and gather now
-            t0 = time.perf_counter()
-            mask = np.unpackbits(_host(mask_packed))[:nvox].view(
-                np.bool_).reshape(pshape)
-            _moved(profile, "bytes_mask", mask_packed)
-            m, vals = dispatch_gather(mask)
-        labels = self._host_flood(mask, markers, m, vals, profile=profile)
-        if out is not None:
-            out[...] = labels
-        return labels
+            return labels
 
     def _host_flood(self, mask, markers, m, vals, profile=None):
         """The exact flood on the host, over the frame padded once more
@@ -1111,46 +1139,47 @@ class DoGPipeline:
         over integer d² below ``BUCKET_FLOOD_MAX_KEY``, the heap on
         ``-sqrt(d²)`` past it, the pure-python heap without the native
         library."""
-        t0 = time.perf_counter()
-        vals_sq = _host(vals)[:m]
-        t0 = _tick(profile, "gather_distance", t0)
-        mask_w = np.pad(mask, 1, constant_values=False)
-        markers_w = np.pad(markers, 1, constant_values=0)
-        masked_idx = np.flatnonzero(mask_w.ravel())
-        wshape = mask_w.shape
-        output = np.where(mask_w, markers_w, 0).astype(np.int32).ravel()
-        marker_locations = np.flatnonzero(output).astype(np.int64)
-        offsets, _ = neighbor_offsets(wshape)
-        max_key = int(vals_sq.max()) if m else 0
+        with span("gather_distance", profile):
+            vals_sq = _host(vals)[:m]
+        with span("flood", profile):
+            mask_w = np.pad(mask, 1, constant_values=False)
+            markers_w = np.pad(markers, 1, constant_values=0)
+            masked_idx = np.flatnonzero(mask_w.ravel())
+            wshape = mask_w.shape
+            output = np.where(mask_w, markers_w, 0).astype(np.int32).ravel()
+            marker_locations = np.flatnonzero(output).astype(np.int64)
+            offsets, _ = neighbor_offsets(wshape)
+            max_key = int(vals_sq.max()) if m else 0
 
-        def priorities():
-            # the f32 cast of the f64 sqrt: image_watershed's -EDT image
-            prio = np.zeros(mask_w.size, np.float32)
-            prio[masked_idx] = (-np.sqrt(vals_sq.astype(np.float64))).astype(
-                np.float32)
-            return prio
+            def priorities():
+                # the f32 cast of the f64 sqrt: image_watershed's -EDT image
+                prio = np.zeros(mask_w.size, np.float32)
+                prio[masked_idx] = (-np.sqrt(
+                    vals_sq.astype(np.float64))).astype(np.float32)
+                return prio
 
-        try:
-            if max_key < native.BUCKET_FLOOD_MAX_KEY:
-                keys = np.zeros(mask_w.size, np.int32)
-                keys[masked_idx] = vals_sq.astype(np.int32)
-                native.bucket_flood_image(keys, offsets, marker_locations,
-                                          mask_w.ravel(), output)
-            else:
-                prio = priorities()
-                native.priority_flood(
-                    prio[None], offsets, np.zeros(len(offsets), np.int64),
-                    offsets, marker_locations, prio[marker_locations],
-                    mask_w.ravel(), output)
-        except native.NativeUnavailable:
-            from ..ops import watershed_oracle as oracle
+            try:
+                if max_key < native.BUCKET_FLOOD_MAX_KEY:
+                    keys = np.zeros(mask_w.size, np.int32)
+                    keys[masked_idx] = vals_sq.astype(np.int32)
+                    native.bucket_flood_image(keys, offsets,
+                                              marker_locations,
+                                              mask_w.ravel(), output)
+                else:
+                    prio = priorities()
+                    native.priority_flood(
+                        prio[None], offsets, np.zeros(len(offsets), np.int64),
+                        offsets, marker_locations, prio[marker_locations],
+                        mask_w.ravel(), output)
+            except native.NativeUnavailable:
+                from ..ops import watershed_oracle as oracle
 
-            inner = (slice(1, -1),) * 3
-            labels_p = oracle.image_flood_py(
-                priorities().reshape(wshape)[inner], markers, mask)
-            output = np.pad(labels_p, 1).astype(np.int32).ravel()
-        _tick(profile, "flood", t0)
-        return output.reshape(wshape)[1:-1, 1:-1, 1:-1]
+                inner = (slice(1, -1),) * 3
+                labels_p = oracle.image_flood_py(
+                    priorities().reshape(wshape)[inner], markers, mask)
+                output = np.pad(labels_p, 1).astype(np.int32).ravel()
+            del vals_sq  # its pinned buffer is freed here, inside the span
+            return output.reshape(wshape)[1:-1, 1:-1, 1:-1]
 
 
 def _into(out, pshape, labels):
@@ -1159,9 +1188,10 @@ def _into(out, pshape, labels):
     ``out``."""
     if out is None:
         return labels
-    out[:] = 0
-    view = out.reshape(pshape)[1:-1, 1:-1, 1:-1]
-    view[:] = labels
+    with span("restore"):
+        out[:] = 0
+        view = out.reshape(pshape)[1:-1, 1:-1, 1:-1]
+        view[:] = labels
     return view
 
 
@@ -1214,16 +1244,14 @@ def _exact_path(profile, resolved, unc_count, n_mask, tie_frac,
 
 def _moved(profile, key, x):
     """Add the bytes of ``x`` (a tensor, a ``_HostCopy`` or an array), a
-    transfer between host and device, to ``profile[key]``."""
+    transfer between host and device, to ``profile[key]`` and to the
+    counter ``key``."""
+    if profile is None and not recording():
+        return
+    if isinstance(x, _HostCopy):
+        x = x.tensor
+    n = (x.numel() * x.element_size() if isinstance(x, torch.Tensor)
+         else x.nbytes)
     if profile is not None:
-        if isinstance(x, _HostCopy):
-            x = x.tensor
-        n = (x.numel() * x.element_size() if isinstance(x, torch.Tensor)
-             else x.nbytes)
         profile[key] = profile.get(key, 0) + n
-
-
-def _tick(profile, name, t0):
-    if profile is not None:
-        profile[name] = profile.get(name, 0.0) + (time.perf_counter() - t0)
-    return time.perf_counter()
+    count(key, n)

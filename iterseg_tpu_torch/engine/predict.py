@@ -19,6 +19,7 @@ from ..core.chunks import make_chunks, chunk_slices, process_chunks  # noqa: F40
 from ..device import resolve_device
 from ..models.convert import (infer_spec_from_params, load_checkpoint,
                               params_from_numpy)
+from ..utils import count
 
 __all__ = [
     "DEFAULT_UNET_PATH",
@@ -81,6 +82,7 @@ class UNetModel:
         device = torch.device(device)
         key = (str(device), self.compute_dtype)
         if key not in self._nets:
+            count("unet_replicas")
             net = params_from_numpy(self._params, self.spec)
             self._nets[key] = net.to(device=device, dtype=self.compute_dtype)
         return self._nets[key]
@@ -105,6 +107,7 @@ def load_unet(u_state_fn=None, compute_dtype=torch.float32) -> UNetModel:
                 "No default U-Net checkpoint found at "
                 f"{os.path.abspath(u_state_fn)}. Pass an explicit .npz/.pt "
                 "path.")
+    count("checkpoint_reads")
     return UNetModel(load_checkpoint(str(u_state_fn)),
                      compute_dtype=compute_dtype)
 

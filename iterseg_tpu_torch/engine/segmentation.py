@@ -33,6 +33,7 @@ from ..ops.cc import label_np
 from ..ops.edt import edt_np
 from ..ops.filters import dog_image as _dog_image_t
 from ..ops.filters import gaussian
+from ..utils import call_span, carried, count, frame_span, span
 from .predict import load_unet, predict_volume
 
 __all__ = [
@@ -197,6 +198,7 @@ def _pipeline(cache, unet, chunk_size, margin, device_flood,
     key = (tuple(chunk_size), tuple(margin), device_flood,
            bool(flood_telemetry), bool(device_normalize), str(device))
     if key not in cache:
+        count("pipelines")
         cache[key] = AffinityPipeline(
             unet, chunk_size=chunk_size, margin=margin,
             device_flood=device_flood, flood_telemetry=flood_telemetry,
@@ -364,6 +366,7 @@ def _dog_pipeline(cache, min_sigma, max_sigma, threshold, device_flood,
     key = ("dog", float(min_sigma), float(max_sigma), float(threshold),
            device_flood, str(device))
     if key not in cache:
+        count("pipelines")
         cache[key] = DoGPipeline(min_sigma=min_sigma, max_sigma=max_sigma,
                                  threshold=threshold,
                                  device_flood=device_flood, device=device)
@@ -672,52 +675,56 @@ def segmentation_wrapper(
     devices=None,
 ):
     """Allocate the output label store, run the per-frame loop and (with a
-    viewer) add the result layer. ``debug=True`` skips saving."""
-    input_volume_layer = _as_layer(input_volume_layer)
-    config = config_prep_function(
-        input_volume_layer, network_or_config_file, layer_reference
-    )
-    if config is None:
-        config = {}
-    config["devices"] = _devices(devices)
-
-    save_path = None
-    if save_dir is not None and not debug:
-        save_path = os.path.join(str(save_dir), name + ".ome.zarr")
-
-    data = input_volume_layer.data
-    shape = data.shape
-    scale = getattr(input_volume_layer, "scale", np.ones(len(shape)))
-    translate = getattr(input_volume_layer, "translate", np.zeros(len(shape)))
-    if save_path is not None:
-        os.makedirs(str(save_dir), exist_ok=True)
-        output_labels = allocate_labels_store(
-            save_path, shape, chunk_size, name, scale=scale,
-            translate=translate,
+    viewer) add the result layer. ``debug=True`` skips saving. The call is
+    one ``call`` span (``utils.call_span``), its set-up up to the first
+    frame the span ``entry``."""
+    with call_span():
+        input_volume_layer = _as_layer(input_volume_layer)
+        config = config_prep_function(
+            input_volume_layer, network_or_config_file, layer_reference
         )
-    else:
-        output_labels = np.zeros(shape, dtype=np.int32)
+        if config is None:
+            config = {}
+        config["devices"] = _devices(devices)
 
-    loop = segmentation_loop(
-        napari_viewer, data, chunk_size, margin, output_labels,
-        processing_function, config,
-    )
+        save_path = None
+        if save_dir is not None and not debug:
+            save_path = os.path.join(str(save_dir), name + ".ome.zarr")
 
-    def run():
-        for t in loop:
-            print(f"Segmented t = {t}")
-
-    def finish():
-        if napari_viewer is not None:
-            return napari_viewer.add_labels(
-                output_labels, name=name, scale=scale, translate=translate
+        data = input_volume_layer.data
+        shape = data.shape
+        scale = getattr(input_volume_layer, "scale", np.ones(len(shape)))
+        translate = getattr(input_volume_layer, "translate",
+                            np.zeros(len(shape)))
+        if save_path is not None:
+            os.makedirs(str(save_dir), exist_ok=True)
+            output_labels = allocate_labels_store(
+                save_path, shape, chunk_size, name, scale=scale,
+                translate=translate,
             )
-        return output_labels
+        else:
+            output_labels = np.zeros(shape, dtype=np.int32)
 
-    if threaded and not debug:
-        return SegmentationWorker(run, finish)
-    run()
-    return finish()
+        loop = segmentation_loop(
+            napari_viewer, data, chunk_size, margin, output_labels,
+            processing_function, config,
+        )
+
+        def run():
+            for t in loop:
+                print(f"Segmented t = {t}")
+
+        def finish():
+            if napari_viewer is not None:
+                return napari_viewer.add_labels(
+                    output_labels, name=name, scale=scale, translate=translate
+                )
+            return output_labels
+
+        if threaded and not debug:
+            return SegmentationWorker(run, finish)
+        run()
+        return finish()
 
 
 class SegmentationWorker:
@@ -736,7 +743,7 @@ class SegmentationWorker:
             except BaseException as e:  # re-raised in result()
                 self._error = e
 
-        self.thread = threading.Thread(target=target, daemon=True)
+        self.thread = threading.Thread(target=carried(target), daemon=True)
         self.thread.start()
 
     @property
@@ -761,12 +768,17 @@ def segmentation_loop(viewer, data, chunk_size, margin, output_labels,
     frames that already hold labels are skipped; a 3D volume is always
     segmented."""
     ndim = getattr(data, "ndim", len(data.shape))
+    card = (config.get("devices") or [None])[0]  # for the frame spans
     if ndim == 3:
-        output = segment_single_volume(
-            np.asarray(data), chunk_size, config, margin,
-            processing_function,
-        )
-        output_labels[...] = output
+        frame = frame_span(0, card)
+        with frame:
+            output = segment_single_volume(
+                np.asarray(data), chunk_size, config, margin,
+                processing_function,
+            )
+            with span("restore"):
+                output_labels[...] = output
+        frame.close()
         yield 0
         return
     if (
@@ -805,11 +817,15 @@ def segmentation_loop(viewer, data, chunk_size, margin, output_labels,
     for t in range(data.shape[0]):
         if np.any(np.asarray(output_labels[t])):
             continue  # warm restart: frame already segmented
-        current_output = segment_single_volume(
-            np.asarray(data[t]), chunk_size, config, margin,
-            processing_function
-        )
-        output_labels[t, ...] = current_output
+        frame = frame_span(t, card)
+        with frame:
+            current_output = segment_single_volume(
+                np.asarray(data[t]), chunk_size, config, margin,
+                processing_function
+            )
+            with span("restore"):
+                output_labels[t, ...] = current_output
+        frame.close()
         yield t
 
 
@@ -835,21 +851,25 @@ def segment_single_volume(input_volume, chunk_size, config, margin,
         and np.issubdtype(raw.dtype, np.integer)
         and raw.dtype.itemsize <= 4
     )
-    if integer_wire:
-        from .device_pipeline import _prepare_frame
+    # the frame's preparation is part of its dispatch (a stack's frames
+    # prepare inside the pipeline's own ``dispatch`` span)
+    with span("dispatch"):
+        if integer_wire:
+            from .device_pipeline import _prepare_frame
 
-        input_volume, kept, _dev_norm = _prepare_frame(raw)
-        config = {**config, "device_normalize": True}
-    else:
-        input_volume, kept = prepare_volume(raw.astype(np.float32),
-                                            return_kept=True)
-    current_output = np.pad(
-        np.zeros(input_volume.shape, dtype=np.int32), 1, mode="constant",
-    )
+            input_volume, kept, _dev_norm = _prepare_frame(raw)
+            config = {**config, "device_normalize": True}
+        else:
+            input_volume, kept = prepare_volume(raw.astype(np.float32),
+                                                return_kept=True)
+        current_output = np.pad(
+            np.zeros(input_volume.shape, dtype=np.int32), 1, mode="constant",
+        )
     crop = (slice(1, -1),) * current_output.ndim
     processing_function(input_volume, current_output, chunk_size, margin,
                         **config)
-    return restore_labels(current_output[crop], kept, original_shape)
+    with span("restore"):
+        return restore_labels(current_output[crop], kept, original_shape)
 
 
 segmenters = {

@@ -36,7 +36,6 @@ TPU host's thin link and gives bit-equal losses by construction.
 from __future__ import annotations
 
 import os
-import time
 from datetime import datetime
 
 import numpy as np
@@ -47,6 +46,7 @@ from ..helpers import LINE, write_csv, write_log, write_tiff
 from ..models.convert import (load_checkpoint, params_from_numpy,
                               params_to_numpy, save_checkpoint)
 from ..models.unet import UNet, UNetSpec
+from ..utils import span
 from .losses import channel_losses, make_loss_function
 from .train_io import load_tensor_from_zarr
 
@@ -109,7 +109,9 @@ def train_unet(
     dict that receives ``step_s`` (each train step's wall seconds, from
     its dispatch to the read of its loss, the next batch's load and upload
     included), ``load_s`` (each batch's read and upload dispatch) and
-    ``validation_s`` (each validation pass).
+    ``validation_s`` (each validation pass), from the spans ``step``
+    (the step's dispatch), ``read`` (its loss reads), ``load`` and
+    ``validation``.
 
     ``mesh`` (a ``parallel.mesh.Mesh``) trains over its data x space
     blocks (see the module docstring); the master parameters, the
@@ -165,12 +167,14 @@ def train_unet(
                       str(dev), out_dir, log and save_output, chan_losses,
                       losses, channels, fork_channels)
     timings = {"step_s": [], "load_s": [], "validation_s": []}
+    # the spans' totals; ``profile`` gets the per-step lists of ``timings``
+    timed = None if profile is None else {}
 
     def load(img, tgt):
-        t0 = time.perf_counter()
-        xb = _upload(load_tensor_from_zarr(0, [img])[None, None], dev)
-        yb = _upload(load_tensor_from_zarr(0, [tgt])[None], dev)
-        timings["load_s"].append(time.perf_counter() - t0)
+        with span("load", timed) as s:
+            xb = _upload(load_tensor_from_zarr(0, [img])[None, None], dev)
+            yb = _upload(load_tensor_from_zarr(0, [tgt])[None], dev)
+        timings["load_s"].append(s.seconds)
         return xb, yb
 
     if mesh is None:
@@ -194,13 +198,14 @@ def train_unet(
         def load_step(idxs):
             """The step's chunks: x as the mesh's (1, 1, z, y, x / space)
             blocks, each on its device, y whole on the first."""
-            t0 = time.perf_counter()
-            xb = np.stack([load_tensor_from_zarr(0, [x[i]]) for i in idxs])
-            xb = [_upload(blk, d) for blk, d in zip(mesh_mod._blocks(
-                torch.from_numpy(xb[:, None]), dp, sp), mesh_devices)]
-            yb = _upload(np.stack([load_tensor_from_zarr(0, [y[i]])
-                                   for i in idxs]), dev)
-            timings["load_s"].append(time.perf_counter() - t0)
+            with span("load", timed) as s:
+                xb = np.stack([load_tensor_from_zarr(0, [x[i]])
+                               for i in idxs])
+                xb = [_upload(blk, d) for blk, d in zip(mesh_mod._blocks(
+                    torch.from_numpy(xb[:, None]), dp, sp), mesh_devices)]
+                yb = _upload(np.stack([load_tensor_from_zarr(0, [y[i]])
+                                       for i in idxs]), dev)
+            timings["load_s"].append(s.seconds)
             return xb, yb
 
         def step_id(idxs):
@@ -221,26 +226,27 @@ def train_unet(
         return loss.detach(), chan
 
     def run_validation(e, batch_no):
-        t0 = time.perf_counter()
         v_y_hats = []
         total = 0.0
-        if not validate_in_train_mode:
-            net.eval()
-        with torch.no_grad():
-            for i in range(len(vx)):
-                xb, yb = load(vx[i], vy[i])
-                out = net(xb)
-                # the loss epoch is PINNED at 0 for validation: the
-                # reference sets its validation loss's epoch only at e == 0
-                vl = float(loss_fn(out, yb, 0))
-                v_y_hats.append(out.cpu().numpy())
-                total += vl
-                validation_dict["epoch"].append(e)
-                validation_dict["validation_loss"].append(vl)
-                validation_dict["data_id"].append(vids[i])
-                validation_dict["batch_id"].append(batch_no)
-        net.train()
-        timings["validation_s"].append(time.perf_counter() - t0)
+        with span("validation", timed) as s:
+            if not validate_in_train_mode:
+                net.eval()
+            with torch.no_grad():
+                for i in range(len(vx)):
+                    xb, yb = load(vx[i], vy[i])
+                    out = net(xb)
+                    # the loss epoch is PINNED at 0 for validation: the
+                    # reference sets its validation loss's epoch only at
+                    # e == 0
+                    vl = float(loss_fn(out, yb, 0))
+                    v_y_hats.append(out.cpu().numpy())
+                    total += vl
+                    validation_dict["epoch"].append(e)
+                    validation_dict["validation_loss"].append(vl)
+                    validation_dict["data_id"].append(vids[i])
+                    validation_dict["batch_id"].append(batch_no)
+            net.train()
+        timings["validation_s"].append(s.seconds)
         if len(vx):
             s = f"Epoch {e} - validation loss: {total / len(vx)}"
             print(s)
@@ -257,16 +263,21 @@ def train_unet(
             running_loss = 0.0
             batch = load_step(steps[0]) if steps else None
             for si, idxs in enumerate(steps):
-                t0 = time.perf_counter()
-                xb, yb = batch
-                loss, chan = step_fn(xb, yb, e)
+                with span("step", timed) as dispatched:
+                    xb, yb = batch
+                    loss, chan = step_fn(xb, yb, e)
                 if si + 1 < len(steps):
                     # double-buffer: read and upload the next batch while
                     # the dispatched step runs on the card
                     batch = load_step(steps[si + 1])
-                loss = float(loss)
-                chan = chan.cpu().numpy()
-                timings["step_s"].append(time.perf_counter() - t0)
+                    loaded = timings["load_s"][-1]
+                else:
+                    loaded = 0.0
+                with span("read", timed) as read:
+                    loss = float(loss)
+                    chan = chan.cpu().numpy()
+                timings["step_s"].append(dispatched.seconds + loaded
+                                         + read.seconds)
                 loss_dict["epoch"].append(e)
                 loss_dict["batch_num"].append(si)
                 loss_dict["loss"].append(loss)

@@ -624,3 +624,43 @@ def test_dp_train_step_on_cards_matches_cpu(cuda):
     for k, v in host[2].items():
         assert float((card[2][k] - v).abs().max()) <= 1e-5 * float(
             v.abs().max()), k
+
+
+def test_program_spans_name_the_idle_time_of_a_dog_call(cuda):
+    """The benchmark's trace analysis (``portbench/harness/trace.py``) of
+    one DoG call at the benchmark's frame size names at least 95% of the
+    card's idle time by the program's leaf spans. A call runs before the
+    analysed one inside the profile, as in the benchmark's tail, so that
+    the analysed call's first gap has a span before it."""
+    import sys
+
+    from iterseg_tpu_torch import utils
+    from iterseg_tpu_torch.engine.segmentation import dog_blob_watershed
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "portbench"))
+    from harness import trace
+
+    r = np.random.default_rng(0)
+    vol = np.zeros((33, 512, 512), np.float32)
+    pts = np.stack([r.integers(1, s - 1, size=900) for s in vol.shape], 1)
+    vol[tuple(pts.T)] = 1.0
+    vol = ndi.gaussian_filter(vol, (1, 4, 4))
+    vol = (vol / vol.max() * 50000 + r.integers(0, 500, vol.shape)).astype(
+        np.uint16)
+
+    def call():
+        return dog_blob_watershed(None, vol, None, "t", None, debug=True)
+
+    call()
+    with trace.profiled() as prof:
+        call()
+        with torch.profiler.record_function("portbench.call"):
+            call()
+    got = trace.analyse(prof)
+    idle = got["window_s"] - got["busy_s"]
+    named = sum(s for k, s in got["idle_gaps"]
+                if k.startswith("call: after " + utils.PREFIX))
+    assert idle > 0 and named >= 0.95 * idle, got["idle_gaps"]
+    assert {s["name"] for s in utils.spans()} >= {"call", "frame", "entry",
+                                                   "dispatch", "flood"}
