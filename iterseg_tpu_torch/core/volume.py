@@ -20,9 +20,11 @@ def remove_sum_zero_slices(input_volume, return_kept=False):
 
     Matches iterseg ``segmentation.py:903-916``: for each axis, keep only
     the indices whose hyperplane sum is nonzero.  Vectorised instead of the
-    reference's per-index Python loop.  With ``return_kept``, also returns
-    the per-axis kept index arrays so results computed on the reduced
-    volume can be scattered back to the original shape.
+    reference's per-index Python loop, and an axis that keeps every index
+    is not indexed (a volume that loses nothing comes back as it is, not
+    copied).  With ``return_kept``, also returns the per-axis kept index
+    arrays so results computed on the reduced volume can be scattered back
+    to the original shape.
     """
     kept = []
     for ax_i in range(input_volume.ndim):
@@ -30,9 +32,10 @@ def remove_sum_zero_slices(input_volume, return_kept=False):
         sums = input_volume.sum(axis=other)
         nonzero = np.flatnonzero(sums)
         kept.append(nonzero)
-        s = [slice(None)] * input_volume.ndim
-        s[ax_i] = nonzero
-        input_volume = input_volume[tuple(s)]
+        if len(nonzero) < input_volume.shape[ax_i]:
+            s = [slice(None)] * input_volume.ndim
+            s[ax_i] = nonzero
+            input_volume = input_volume[tuple(s)]
     if return_kept:
         return input_volume, kept
     return input_volume

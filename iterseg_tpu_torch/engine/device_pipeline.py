@@ -46,6 +46,7 @@ verified exact image flood on ``-d²``.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 
 import numpy as np
@@ -221,6 +222,66 @@ def _prepare_frame(raw):
     return np.ascontiguousarray(vol), kept, False
 
 
+# each card's frame streams, made once: the caching allocator keeps its
+# blocks per stream, so streams made anew for each stack would strand them
+_frame_streams = {}
+
+
+def _card_index(device):
+    """The CUDA card ``device`` names (the current one for a bare
+    ``cuda``), or ``None`` for the CPU and for ``None``."""
+    if device is None:
+        return None
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    return (device.index if device.index is not None
+            else torch.cuda.current_device())
+
+
+class _CardStreams:
+    """The streams a stack's frames take on each CUDA card of ``cards``,
+    in turn: one for each frame that can be in flight there (the card's
+    count in ``cards``, plus one, with the lookahead at ``len(cards)``)."""
+
+    def __init__(self, cards):
+        counts = collections.Counter(_card_index(c) for c in cards)
+        counts.pop(None, None)
+        self._pools = {}
+        for index, n in counts.items():
+            pool = _frame_streams.setdefault(index, [])
+            while len(pool) <= n:
+                pool.append(torch.cuda.Stream(device=index))
+            self._pools[index] = pool[:n + 1]
+        self._taken = collections.Counter()
+        self._dispatched = {}
+
+    @contextlib.contextmanager
+    def dispatching(self, card):
+        """Make the card's next stream current (``None`` on the CPU) and
+        order its work after the card's previous dispatch, so the card runs
+        the frames in turn while the host runs ahead of it."""
+        index = _card_index(card)
+        if index is None:
+            yield None
+            return
+        pool = self._pools[index]
+        stream = pool[self._taken[index] % len(pool)]
+        self._taken[index] += 1
+        with torch.cuda.stream(stream):
+            if index in self._dispatched:
+                stream.wait_event(self._dispatched[index])
+            yield stream
+            done = self._dispatched[index] = torch.cuda.Event()
+            done.record(stream)
+
+
+def _frame_stream(stream):
+    """Make ``stream`` (``None``: leave the current stream) current."""
+    return (contextlib.nullcontext() if stream is None
+            else torch.cuda.stream(stream))
+
+
 def _drive_stack(stack, output_labels, skip_labelled, devices,
                  dispatch_one, finalize_one, own_device=None):
     """Pipelined 4D drive: frame t+1's device work is dispatched before
@@ -230,23 +291,36 @@ def _drive_stack(stack, output_labels, skip_labelled, devices,
     every card has a frame queued; ``None`` is the pipeline's own device,
     ``own_device``. ``dispatch_one(t, device)`` returns a job,
     ``finalize_one(job)`` the frame's labels; both run under the frame's
-    device guard and its ``frame`` span."""
+    device guard and its ``frame`` span.
+
+    On CUDA each frame in flight owns a stream of its card
+    (``_CardStreams``), current while its dispatch and its finalisation
+    run (never across a ``yield``): a frame's host reads wait for that
+    frame's work alone, and a dispatch does not wait for the card. The
+    counter ``async_dispatch`` counts the frames whose stream still has
+    work queued when their dispatch returns (one non-blocking query):
+    their dispatch did not wait for their work to run."""
     todo = [t for t in range(stack.shape[0])
             if not (skip_labelled and np.any(np.asarray(output_labels[t])))]
-    lookahead = 1 if devices is None else len(devices)
+    cards = [own_device] if devices is None else list(devices)
+    streams = _CardStreams(cards)
+    lookahead = len(cards)
     pending = []
     next_dispatch = 0
     for i in range(len(todo)):
         while next_dispatch < len(todo) and next_dispatch <= i + lookahead:
             t = todo[next_dispatch]
-            device = (None if devices is None
-                      else devices[next_dispatch % len(devices)])
-            frame = frame_span(t, own_device if device is None else device)
-            with _on(device), frame:
-                pending.append((t, device, frame, dispatch_one(t, device)))
+            card = cards[next_dispatch % len(cards)]
+            device = None if devices is None else card
+            frame = frame_span(t, card)
+            with _on(device), frame, streams.dispatching(card) as stream:
+                job = dispatch_one(t, device)
+                if stream is not None and not stream.query():
+                    count("async_dispatch")
+            pending.append((t, device, frame, stream, job))
             next_dispatch += 1
-        jt, device, frame, job = pending.pop(0)
-        with _on(device), frame:
+        jt, device, frame, stream, job = pending.pop(0)
+        with _on(device), frame, _frame_stream(stream):
             labels = finalize_one(job)
             with span("restore"):
                 output_labels[jt] = labels
@@ -275,15 +349,33 @@ def _valid_grid(zyx, chunk_size, margin):
     return pads, padded, chunk, marg
 
 
+def _upload_frame(vol, device, normalize):
+    """The numpy volume ``vol`` as float32 on ``device``, divided by its max
+    when ``normalize`` (the max of the converted volume: the host's
+    ``np.max(vol.astype(np.float32))``, as int -> f32 is exact and max
+    selects). It is uploaded once, in its source dtype: on CUDA staged in
+    pinned memory and copied with ``non_blocking`` on the current stream,
+    so the host does not wait for the work queued there (a pageable copy
+    would); torch's pinned pool reuses the staging buffer only once that
+    copy has run."""
+    t = torch.from_numpy(np.ascontiguousarray(vol))
+    if torch.device(device).type == "cuda":
+        staged = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        np.copyto(staged.numpy(), t.numpy())
+        t = staged.to(device, non_blocking=True)
+    frame = t.to(device=device, dtype=torch.float32)
+    return frame / torch.amax(frame) if normalize else frame
+
+
 def _build_feature_program(model, zyx, chunk_size, margin, microbatch,
                            normalize=False):
     """``program(vol numpy zyx, device) -> (C, zyx) float32 tensor on
     device``: the overlapping chunk grid, grouped into z-ordered microbatches
     of ``microbatch`` chunks (the last one zero-padded, so every forward has
-    the same batch), each reading one z-slab uploaded in the volume's source
-    dtype and converted (and /max-normalised, with the denominator taken on
-    the host) on the device, then the margin-cropped pieces concatenated
-    back together."""
+    the same batch), each reading one z-slab of the volume, which is
+    uploaded once and converted (and /max-normalised) on the device
+    (``_upload_frame``: on CUDA the host does not wait for the card), then
+    the margin-cropped pieces concatenated back together."""
     pads, padded, chunk, marg = _valid_grid(zyx, chunk_size, margin)
     starts, crops = make_chunks(padded, chunk, marg)
     n = len(starts)
@@ -311,17 +403,11 @@ def _build_feature_program(model, zyx, chunk_size, margin, microbatch,
         if any(p[1] for p in pads):
             vol = np.pad(vol, pads, mode="edge")
         net = model.module(device)
-        denom = None
-        if normalize:
-            denom = torch.tensor(np.max(vol.astype(np.float32)),
-                                 dtype=torch.float32, device=device)
         ys = []
         with torch.no_grad(), f32_numerics():
+            frame = _upload_frame(vol, device, normalize)
             for b, (z0, z1) in enumerate(slab_of):
-                slab = torch.from_numpy(np.ascontiguousarray(vol[z0:z1]))
-                v = slab.to(device).to(torch.float32)
-                if normalize:
-                    v = v / denom
+                v = frame[z0:z1]
                 xs = torch.stack([v[chunk_slices(s, chunk)]
                                   for s in rel_starts[b]])[:, None]
                 if len(rel_starts[b]) < B:
@@ -371,14 +457,14 @@ def get_feature_program(model, zyx, chunk_size=(10, 256, 256),
 
 def _pack_mask_bits(mask):
     """Pack a boolean tensor MSB-first (the np.unpackbits layout) into
-    uint8."""
+    uint8. The bit shifts are made on the device: a host-made tensor would
+    be a synchronising copy."""
     mbits = mask.reshape(-1)
     pad_bits = (-mbits.numel()) % 8
     if pad_bits:
         mbits = torch.cat([mbits, mbits.new_zeros(pad_bits)])
-    weights = torch.tensor([128, 64, 32, 16, 8, 4, 2, 1], dtype=torch.uint8,
-                           device=mask.device)
-    return (mbits.reshape(-1, 8).to(torch.uint8) * weights).sum(
+    shifts = torch.arange(7, -1, -1, dtype=torch.uint8, device=mask.device)
+    return (mbits.reshape(-1, 8).to(torch.uint8) << shifts).sum(
         1, dtype=torch.uint8)
 
 
@@ -496,7 +582,9 @@ class AffinityPipeline:
         else:
             # python floats and f32 scalars compare in f32 on the host
             t32 = np.float32(float(t))
-        return torch.tensor(t32, dtype=torch.float32, device=otsu.device)
+        # filled on the device: no host copy, so no wait for the forward
+        return torch.full((), float(t32), dtype=torch.float32,
+                          device=otsu.device)
 
     def _device_outputs(self, x, device=None, normalize=None):
         """Run F → P → C on a host volume (no host synchronisation) and start

@@ -9,6 +9,7 @@ give bit-identical features, hence labels.
 """
 from __future__ import annotations
 
+import itertools
 import os
 from typing import Optional, Tuple
 
@@ -78,14 +79,23 @@ class UNetModel:
         return self.spec.total_out
 
     def module(self, device) -> torch.nn.Module:
-        """The network on ``device`` in the compute dtype (eval mode)."""
+        """The network on ``device`` in the compute dtype (eval mode). On
+        CUDA its tensors are marked as used by the current stream, which
+        may not be the stream that built them (a stack's frames each run on
+        their own): the caching allocator then reuses their memory, once
+        the network is dropped, only after that stream's work is done."""
         device = torch.device(device)
         key = (str(device), self.compute_dtype)
         if key not in self._nets:
             count("unet_replicas")
             net = params_from_numpy(self._params, self.spec)
             self._nets[key] = net.to(device=device, dtype=self.compute_dtype)
-        return self._nets[key]
+        net = self._nets[key]
+        if device.type == "cuda":
+            stream = torch.cuda.current_stream(device)
+            for t in itertools.chain(net.parameters(), net.buffers()):
+                t.record_stream(stream)
+        return net
 
     def __call__(self, x, device=None):
         """NCZYX in, NCZYX float32 tensor out, on ``device``."""

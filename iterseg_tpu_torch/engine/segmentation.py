@@ -677,7 +677,8 @@ def segmentation_wrapper(
     """Allocate the output label store, run the per-frame loop and (with a
     viewer) add the result layer. ``debug=True`` skips saving. The call is
     one ``call`` span (``utils.call_span``), its set-up up to the first
-    frame the span ``entry``."""
+    frame the span ``entry``, the release of what it built the span
+    ``release``."""
     with call_span():
         input_volume_layer = _as_layer(input_volume_layer)
         config = config_prep_function(
@@ -713,6 +714,11 @@ def segmentation_wrapper(
         def run():
             for t in loop:
                 print(f"Segmented t = {t}")
+            with span("release"):
+                # the call's U-Net replicas and pipelines are freed here,
+                # inside a span: a stack's replica blocks are marked for
+                # its frame streams and record CUDA events as they go
+                config.clear()
 
         def finish():
             if napari_viewer is not None:

@@ -95,20 +95,52 @@ def _final_activation(x, kind):
     raise ValueError(f"unknown final activation {kind!r}")
 
 
-def _bn_eval(x, bn: nn.BatchNorm3d):
-    """Eval BatchNorm in the JAX model's folded form (same rounding)."""
+def _bn_fold(bn: nn.BatchNorm3d, dtype):
+    """Eval BatchNorm's ``(scale, shift)`` in the JAX model's folded form
+    (same rounding), shaped to broadcast over NCZYX."""
     inv = torch.rsqrt(bn.running_var.float() + BN_EPS)
-    scale = (bn.weight * inv).to(x.dtype).reshape(1, -1, 1, 1, 1)
-    shift = (bn.bias - bn.running_mean * bn.weight * inv).to(x.dtype)
-    return x * scale + shift.reshape(1, -1, 1, 1, 1)
+    scale = (bn.weight * inv).to(dtype).reshape(1, -1, 1, 1, 1)
+    shift = (bn.bias - bn.running_mean * bn.weight * inv).to(dtype)
+    return scale, shift.reshape(1, -1, 1, 1, 1)
 
 
 class BatchNorm(nn.BatchNorm3d):
-    """``nn.BatchNorm3d`` whose eval forward is ``_bn_eval``; in train mode
-    it takes the batch statistics as ``nn.BatchNorm3d`` does."""
+    """``nn.BatchNorm3d`` whose eval forward is ``x * scale + shift`` in
+    the JAX model's folded form; in train mode it takes the batch
+    statistics as ``nn.BatchNorm3d`` does.
+
+    Outside autograd the fold is kept, one for each CUDA stream it is used
+    on (so no stream reads what another computes), until a train-mode
+    forward moves the statistics or the weights or statistics change
+    (another tensor, or written in place other than through ``.data``):
+    an eval forward then launches two kernels a BatchNorm instead of
+    eight."""
+
+    def __init__(self, channels):
+        super().__init__(channels)
+        self._folds, self._fold_of = {}, None
+
+    def _folded(self, dtype):
+        if torch.is_grad_enabled():
+            return _bn_fold(self, dtype)
+        of = tuple((t.data_ptr(), t._version) for t in (
+            self.weight, self.bias, self.running_mean, self.running_var))
+        if of != self._fold_of:
+            self._folds, self._fold_of = {}, of
+        stream = (torch.cuda.current_stream(self.weight.device).stream_id
+                  if self.weight.is_cuda else None)
+        key = (stream, dtype)
+        if key not in self._folds:
+            self._folds[key] = _bn_fold(self, dtype)
+        return self._folds[key]
 
     def forward(self, x):
-        return super().forward(x) if self.training else _bn_eval(x, self)
+        if self.training:
+            # moves the running statistics without a version of its own
+            self._folds = {}
+            return super().forward(x)
+        scale, shift = self._folded(x.dtype)
+        return x * scale + shift
 
 
 class Upsample(nn.ConvTranspose3d):

@@ -7,8 +7,9 @@ The port of ``iterseg_tpu/ops/threshold.py``. For a float32 image
 decrement/increment correction against the edges. This module does the same
 operations in the same order, each rounded on its own (eager torch runs one
 kernel per op, so no multiply-add is contracted into an FMA), and counts
-with ``torch.bincount`` (exact integers). ``torch.histc`` bins differently
-and is not used.
+with an integer ``scatter_add_`` into the ``nbins`` bins (exact integers;
+``torch.bincount`` would read the bin range back to the host, which waits
+for the device). ``torch.histc`` bins differently and is not used.
 
 The inter-class-variance scan runs in float32 as on the JAX device path;
 the argmax can differ from a float64 scan only at a near-tie of the top two
@@ -44,7 +45,8 @@ def _histogram_f32(x: torch.Tensor, nbins: int):
     idx = idx - (x < edges[idx]).to(torch.int64)
     inc = (x >= edges[idx + 1]) & (idx != nbins - 1)
     idx = idx + inc.to(torch.int64)
-    counts = torch.bincount(idx, minlength=nbins)
+    counts = torch.zeros(nbins, dtype=torch.int64, device=x.device)
+    counts.scatter_add_(0, idx, torch.ones_like(idx))
     return counts, edges
 
 
@@ -58,7 +60,9 @@ def _otsu_from_counts(counts, bin_centers):
     mean2 = torch.flip(torch.cumsum(torch.flip(cb, [0]), 0)
                        / torch.flip(weight2, [0]), [0])
     variance12 = weight1[:-1] * weight2[1:] * (mean1[:-1] - mean2[1:]) ** 2
-    return bin_centers[torch.argmax(variance12)]
+    # a 0-d index tensor would be read back to the host; a 1-d one is not
+    best = torch.argmax(variance12).reshape(1)
+    return bin_centers.index_select(0, best).reshape(())
 
 
 def threshold_otsu(image: torch.Tensor, nbins: int = 256) -> torch.Tensor:

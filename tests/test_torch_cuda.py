@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 from scipy import ndimage as ndi
+from slab_uploads import slab_by_slab
 
 from iterseg_tpu_torch.ops import flood_kernel as fk
 from iterseg_tpu_torch.ops import image_flood_kernel as ifk
@@ -626,6 +627,18 @@ def test_dp_train_step_on_cards_matches_cpu(cuda):
             v.abs().max()), k
 
 
+def platelet_frame(seed, shape=(33, 512, 512)):
+    """A uint16 frame at the benchmark's size: 900 blurred blobs, peak
+    50,000, noise below 500."""
+    r = np.random.default_rng(seed)
+    vol = np.zeros(shape, np.float32)
+    pts = np.stack([r.integers(1, s - 1, size=900) for s in vol.shape], 1)
+    vol[tuple(pts.T)] = 1.0
+    vol = ndi.gaussian_filter(vol, (1, 4, 4))
+    return (vol / vol.max() * 50000 + r.integers(0, 500, vol.shape)).astype(
+        np.uint16)
+
+
 def test_program_spans_name_the_idle_time_of_a_dog_call(cuda):
     """The benchmark's trace analysis (``portbench/harness/trace.py``) of
     one DoG call at the benchmark's frame size names at least 95% of the
@@ -641,13 +654,7 @@ def test_program_spans_name_the_idle_time_of_a_dog_call(cuda):
         os.path.abspath(__file__))), "portbench"))
     from harness import trace
 
-    r = np.random.default_rng(0)
-    vol = np.zeros((33, 512, 512), np.float32)
-    pts = np.stack([r.integers(1, s - 1, size=900) for s in vol.shape], 1)
-    vol[tuple(pts.T)] = 1.0
-    vol = ndi.gaussian_filter(vol, (1, 4, 4))
-    vol = (vol / vol.max() * 50000 + r.integers(0, 500, vol.shape)).astype(
-        np.uint16)
+    vol = platelet_frame(0)
 
     def call():
         return dog_blob_watershed(None, vol, None, "t", None, debug=True)
@@ -664,3 +671,106 @@ def test_program_spans_name_the_idle_time_of_a_dog_call(cuda):
     assert idle > 0 and named >= 0.95 * idle, got["idle_gaps"]
     assert {s["name"] for s in utils.spans()} >= {"call", "frame", "entry",
                                                    "dispatch", "flood"}
+
+
+@pytest.fixture(scope="module")
+def platelet_stack():
+    """Six frames at the benchmark's size (made once a module)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return np.stack([platelet_frame(seed) for seed in range(6)])
+
+
+def each_frame_alone(stack, device):
+    from iterseg_tpu_torch.engine.segmentation import affinity_unet_watershed
+
+    return np.stack([np.asarray(affinity_unet_watershed(
+        None, frame, None, "f", None, debug=True, devices=[device]))
+        for frame in stack])
+
+
+def test_stack_on_frame_streams_equals_each_frame_alone(platelet_stack,
+                                                        cuda):
+    """A 6-frame stack, each frame on a stream of its own, gives the
+    labels of each frame segmented alone (on the default stream)."""
+    from iterseg_tpu_torch.engine.segmentation import affinity_unet_watershed
+
+    got = np.asarray(affinity_unet_watershed(
+        None, platelet_stack, None, "s", None, debug=True, devices=[cuda]))
+    want = each_frame_alone(platelet_stack, cuda)
+    assert want.max() > 100
+    np.testing.assert_array_equal(got, want)
+
+
+def test_two_card_stack_on_frame_streams_equals_each_frame_alone(
+        platelet_stack, two_cards):
+    from iterseg_tpu_torch.engine.segmentation import affinity_unet_watershed
+
+    got = np.asarray(affinity_unet_watershed(
+        None, platelet_stack, None, "s", None, debug=True,
+        devices=two_cards))
+    np.testing.assert_array_equal(
+        got, each_frame_alone(platelet_stack, two_cards[0]))
+
+
+def test_frame_dispatch_does_not_wait_for_the_card(platelet_stack, cuda,
+                                                   monkeypatch):
+    """Right after a frame's dispatch returns, its stream still has work
+    queued, and the dispatch made no synchronising call (CUDA's sync debug
+    mode raises on one); the frames take turns on two streams, neither the
+    default one, and each counts ``async_dispatch``."""
+    from iterseg_tpu_torch import utils
+    from iterseg_tpu_torch.engine import device_pipeline as dp
+    from iterseg_tpu_torch.engine.predict import load_unet
+
+    pipe = dp.AffinityPipeline(load_unet(None), device=cuda)
+    pipe.model.module(cuda)  # the replica's pageable build, done before
+    real, queued, streams = dp._drive_stack, [], []
+
+    def spy(stack, out, skip, devices, dispatch_one, finalize_one, own=None):
+        def dispatch(t, device):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                job = dispatch_one(t, device)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            stream = torch.cuda.current_stream()
+            queued.append(not stream.query())
+            streams.append(stream.stream_id)
+            return job
+        return real(stack, out, skip, devices, dispatch, finalize_one, own)
+
+    monkeypatch.setattr(dp, "_drive_stack", spy)
+    out = np.zeros(platelet_stack[:4].shape, np.int32)
+    utils.clear_spans()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        assert list(pipe.segment_stack(platelet_stack[:4], out,
+                                       devices=[cuda])) == [0, 1, 2, 3]
+    assert queued == [True] * 4
+    assert streams[0] == streams[2] != streams[1] == streams[3]
+    assert torch.cuda.default_stream().stream_id not in streams
+    assert out.max() > 100
+    counted = [s["frame"] for s in utils.spans()
+               if s["name"] == "async_dispatch"]
+    assert sorted(counted) == [0, 1, 2, 3]
+
+
+@pytest.mark.parametrize("normalize", [True, False])
+def test_whole_frame_upload_equals_slab_by_slab_on_card(platelet_stack, cuda,
+                                                        normalize):
+    """The feature program's pinned whole-frame upload gives the features
+    of the pageable slab-by-slab uploads bit for bit, at the benchmark's
+    frame, chunk and microbatch."""
+    from iterseg_tpu_torch.engine import device_pipeline as dp
+    from iterseg_tpu_torch.engine.predict import load_unet
+
+    vol = platelet_stack[0]
+    program = dp.get_feature_program(load_unet(None), vol.shape,
+                                     normalize=normalize, device=cuda)
+    assert len(set(program.slab_of)) > 1
+    got = program(vol, cuda)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(dp, "_upload_frame", slab_by_slab(program))
+        want = program(vol, cuda)
+    assert torch.equal(got, want)

@@ -137,6 +137,34 @@ def test_a_profiled_call_records_its_spans(kind, frames, stack):
     assert {"entry", "dispatch", "device_wait", "flood"} <= leaves
 
 
+@pytest.mark.parametrize("frames", [0, 2])
+def test_the_calls_replica_is_freed_inside_its_release_span(frames, stack,
+                                                             monkeypatch):
+    """The U-Net replica a call builds goes inside the call's ``release``
+    span (on a card its blocks, marked for the frame streams, record CUDA
+    events as they are freed: outside a span they would name the idle
+    gap that follows)."""
+    import weakref
+
+    from iterseg_tpu_torch.engine import predict
+
+    real, freed_in, refs = predict.UNetModel.module, [], []
+
+    def module(self, device):
+        net = real(self, device)
+        if not refs:
+            refs.append(weakref.ref(
+                net, lambda _: freed_in.append(utils._context.get().parent)))
+        return net
+
+    monkeypatch.setattr(predict.UNetModel, "module", module)
+    _, items = profiled(lambda: entry("affinity",
+                                      stack if frames else stack[0]))
+    (release,) = named(items, "release")
+    (call,) = named(items, "call")
+    assert freed_in == [release["id"]] and release["parent"] == call["id"]
+
+
 @pytest.mark.parametrize("kind,builds", [
     ("affinity", {"checkpoint_reads": 1, "unet_replicas": 1, "pipelines": 1,
                   "feature_programs": 2}),

@@ -101,3 +101,48 @@ def test_unet_model_bf16_runs():
     y = model(x, device=torch.device("cpu"))
     assert y.dtype == torch.float32 and y.shape == (1, 5, 2, 16, 16)
     assert torch.isfinite(y).all()
+
+
+def _uncached(bn, x):
+    from iterseg_tpu_torch.models.unet import _bn_fold
+
+    scale, shift = _bn_fold(bn, x.dtype)
+    return x * scale + shift
+
+
+def test_eval_batchnorm_keeps_its_fold_until_it_changes():
+    """Eval BatchNorm outside autograd computes its fold once and gives the
+    output of the fold computed afresh, bit for bit; a train-mode forward,
+    an in-place change of a weight and autograd each make it compute the
+    fold again."""
+    from iterseg_tpu_torch.models.unet import BatchNorm
+
+    r = torch.Generator().manual_seed(3)
+    bn = BatchNorm(4)
+    with torch.no_grad():
+        for t in (bn.weight, bn.bias, bn.running_mean):
+            t.copy_(torch.randn(4, generator=r))
+        bn.running_var.copy_(torch.rand(4, generator=r) + 0.5)
+    x = torch.randn(2, 4, 3, 5, 5, generator=r)
+    bn.eval()
+    with torch.no_grad():
+        first = bn(x)
+        assert len(bn._folds) == 1
+        kept = next(iter(bn._folds.values()))
+        assert torch.equal(bn(x), first)
+        assert next(iter(bn._folds.values())) is kept
+        assert torch.equal(first, _uncached(bn, x))
+        bn.train()
+        bn(x * 3 + 1)  # moves the running statistics
+        bn.eval()
+        assert bn._folds == {}
+        assert torch.equal(bn(x), _uncached(bn, x))
+        assert not torch.equal(bn(x), first)
+        bn.weight.mul_(2)
+        assert torch.equal(bn(x), _uncached(bn, x))
+    with torch.enable_grad():
+        bn._folds = {}
+        got = bn(x)
+        assert bn._folds == {} and got.requires_grad
+        with torch.no_grad():
+            assert torch.equal(got, _uncached(bn, x))
