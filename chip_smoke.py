@@ -9,8 +9,9 @@ several: phases ``multi`` and ``space`` use them all), the CUDA toolkit (``nvcc`
 ``iterseg_tpu``. Phases, each printing one JSON line:
 
 1. the card (``nvidia-smi`` name and power limit) and the build: the two
-   CUDA flood kernels (``nvcc``, sm_90a), the host C++ floods and the zstd
-   decoder (``g++``), all started together, into
+   CUDA flood kernels and the window-attention kernel (``nvcc``, sm_90a),
+   the host C++ floods and the zstd decoder (``g++``), all started
+   together, into
    ``build/iterseg_tpu_torch``;
 2. kernel vs plain: the CUDA affinity flood and its plain torch version on a
    seeded smooth (33, 256, 256) fixture, and the CUDA image flood and its
@@ -125,11 +126,22 @@ several: phases ``multi`` and ``space`` use them all), the CUDA toolkit (``nvcc`
    ``affinity_unet_watershed(unet=<that directory>, device_flood="pallas")``
    on phase 4's volume gives phase 4's ``"pallas"`` labels bit for bit,
    with two affinity kernel launches;
-16. the ``kernels`` line: each hand-written kernel timed on the inputs its
+16. ``swin``: a Swin UNETR (MONAI v1, feature size 48, 62.2 M seeded
+   parameters) written as a MONAI-named ``.pt`` and run through
+   ``affinity_unet_watershed`` on a (96, 512, 512) uint16 volume in 96^3
+   chunks at margin 12 with the host flood: 8 launches of the
+   window-attention kernel a microbatch over that call (two blocks a
+   stage), the call's seconds and objects; then the kernel against its
+   plain version (<= 1e-5) and ``scaled_dot_product_attention`` (the same
+   bias and mask as an additive tensor) on stage 0's (49, 49, 49) grid at
+   the program's microbatch, unshifted and shifted, and on stage 3's
+   clipped 6^3 window (24 heads);
+17. the ``kernels`` line: each hand-written kernel timed on the inputs its
    path gave it, against its plain version, with its launches on its path,
-   its steps and tile-steps (equal to the plain frontier schedule's), the
-   split of its time into the init kernel and the step kernel, and its
-   bound.
+   its bound, and for the floods their steps and tile-steps (equal to the
+   plain frontier schedule's) and the split of their time into the init
+   kernel and the step kernel; the window-attention kernel's row has
+   phase 16's stage-0 numbers, with SDPA's ms as ``library_ms``.
 
 Then the card's name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -1375,6 +1387,147 @@ def run_orbax(vol, kwargs, want, work):
     return line
 
 
+def window_attention_case(qkv, table, heads, window, shift):
+    """The window-attention kernel on one stage's tokens against its plain
+    version, and ``scaled_dot_product_attention`` given the windows and
+    the same additive bias and mask: ms of each, the kernel's bound from
+    its inputs, and the kernel's and the library's largest gaps to the
+    plain version."""
+    import torch
+    import torch.nn.functional as F
+
+    from iterseg_tpu_torch.device import f32_numerics
+    from iterseg_tpu_torch.ops import window_attention as wa
+
+    b, dp, hp, wp, c3 = qkv.shape
+    n = window[0] * window[1] * window[2]
+    width = c3 // 3 // heads
+    windows = b * dp * hp * wp // n * heads
+    # the SDPA inputs: the rolled grid's windows, bias and mask made whole
+    x = torch.roll(qkv, [-s for s in shift], (1, 2, 3)) if any(shift) else qkv
+    win = wa._partition(x, window)
+    q, k, v = (t.contiguous() for t in win.reshape(
+        -1, n, 3, heads, width).permute(2, 0, 3, 1, 4))
+    mask = table[wa.relative_index(n, qkv.device).reshape(-1)].reshape(
+        n, n, heads).permute(2, 0, 1)[None].expand(q.shape[0], -1, -1, -1)
+    if any(shift):
+        ids = wa._partition(wa.region_ids((dp, hp, wp), window, shift,
+                                          qkv.device)[None, ..., None],
+                            window)[..., 0]
+        region = torch.where(ids[:, None, :] != ids[:, :, None],
+                             wa.MASK_VALUE, 0.0)
+        mask = (mask.reshape(b, -1, heads, n, n)
+                + region[None, :, None]).reshape(-1, heads, n, n)
+    mask = mask.contiguous()
+    with f32_numerics():
+        got = wa.window_attention(qkv, table, heads, window, shift)
+        want = wa.window_attention_plain(qkv, table, heads, window, shift)
+        lib = F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+        lib = wa._reverse(lib.transpose(1, 2).reshape(-1, n, heads * width),
+                          window, (b, dp, hp, wp))
+        if any(shift):
+            lib = torch.roll(lib, list(shift), (1, 2, 3))
+        row = {
+            "shape": list(qkv.shape), "heads": heads, "window": list(window),
+            "shift": list(shift), "window_heads": windows,
+            "max_abs_err": float((got - want).abs().max()),
+            "library_max_abs_err": float((lib - want).abs().max()),
+            "ms": cuda_ms(lambda: wa.window_attention(qkv, table, heads,
+                                                      window, shift),
+                          reps=10),
+            "plain_ms": cuda_ms(lambda: wa.window_attention_plain(
+                qkv, table, heads, window, shift), reps=1),
+            "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask), reps=3),
+        }
+    # least time: 4 n^2 width operations a window-head at the card's f32
+    # rate, or q, k, v read and the output written once (and the table)
+    ops_s = windows * 4 * n * n * width / F32_OPS_PER_S
+    io_s = 4 * (windows * 4 * n * width + table.numel()) / HBM_BYTES_PER_S
+    row.update(bound_ms=max(ops_s, io_s) * 1e3,
+               bound_by="operations" if ops_s >= io_s else "bytes")
+    check(row["max_abs_err"] <= 1e-5,
+          f"window attention differs from plain by {row['max_abs_err']} "
+          f"({row['shape']}, shift {shift})")
+    return row
+
+
+def run_swin(dev, work):
+    """Phase 16: Swin UNETR (MONAI v1, feature size 48, seeded weights)
+    through ``affinity_unet_watershed`` on a (96, 512, 512) uint16 frame in
+    96^3 chunks (margin 12), the window-attention kernel's launches counted
+    over that call (8 a microbatch: two blocks a stage), then the kernel
+    against its plain version and SDPA on stage 0's grid at the program's
+    microbatch, unshifted and shifted, and on stage 3's clipped 6^3 window.
+    Returns the phase's line and the kernel's row."""
+    import numpy as np
+    import torch
+
+    from iterseg_tpu_torch.engine import device_pipeline as dp
+    from iterseg_tpu_torch.engine.predict import load_unet
+    from iterseg_tpu_torch.engine.segmentation import affinity_unet_watershed
+    from iterseg_tpu_torch.models import swin_unetr as swin
+    from iterseg_tpu_torch.ops import window_attention as wa
+
+    chunk, margin = (96, 96, 96), (12, 12, 12)
+    net = swin.SwinUNETR(swin.SwinUNETRSpec(feature_size=48)).init_weights(0)
+    ckpt = os.path.join(work, "swin_unetr.pt")
+    torch.save(net.state_dict(), ckpt)
+    vol = blob_volume((96, 512, 512), 2700, 16)
+    model = load_unet(ckpt)
+    program = dp.get_feature_program(model, vol.shape, chunk, margin,
+                                     device=dev)
+    batches, microbatch = len(program.slab_of), program.microbatch
+
+    def segment():
+        return affinity_unet_watershed(None, vol, None, "swin", ckpt,
+                                       chunk_size=chunk, margin=margin,
+                                       debug=True, device_flood=False)
+
+    segment()
+    torch.cuda.synchronize()
+    wa.reset_launches()
+    t0 = time.perf_counter()
+    labels = np.asarray(segment())
+    seconds = time.perf_counter() - t0
+    launched = wa.launches()
+    check(launched == 8 * batches,
+          f"window attention launched {launched} times, not 8 x {batches}")
+
+    gen = torch.Generator(device=dev).manual_seed(16)
+    cases = []
+    stages = net.swinViT
+    for grid, stage, block, window, shift in (
+            ((49, 49, 49), stages.layers1, 0, (7, 7, 7), (0, 0, 0)),
+            ((49, 49, 49), stages.layers1, 1, (7, 7, 7), (3, 3, 3)),
+            ((6, 6, 6), stages.layers4, 0, (6, 6, 6), (0, 0, 0))):
+        attn = stage[0].blocks[block].attn
+        qkv = torch.randn((microbatch,) + grid + (attn.qkv.out_features,),
+                          device=dev, generator=gen)
+        table = attn.relative_position_bias_table.detach().to(dev)
+        cases.append(window_attention_case(qkv, table, attn.num_heads,
+                                           window, shift))
+        del qkv
+        torch.cuda.empty_cache()
+    line = {"phase": "swin", "learnt_parameters": sum(
+                p.numel() for p in net.parameters()),
+            "frame": list(vol.shape), "chunk": list(chunk),
+            "margin": list(margin), "microbatch": microbatch,
+            "microbatches": batches, "launches": launched,
+            "seconds": seconds, "objects": int(labels.max()),
+            "labelled_share": float((labels > 0).mean()),
+            "kernel_cases": cases}
+    row = {"name": "window_attention", "route": "cuda",
+           "source": "iterseg_tpu_torch/csrc/window_attention.cu",
+           "replaces": None, "launches": launched,
+           "library": "torch.nn.functional.scaled_dot_product_attention",
+           "tolerance": 1e-5, "cases": cases,
+           **{k: cases[0][k] for k in ("shape", "ms", "plain_ms",
+                                       "bound_ms", "library_ms")},
+           "max_abs_err": max(c["max_abs_err"] for c in cases)}
+    return line, row
+
+
 def main():
     import torch
 
@@ -1395,6 +1548,7 @@ def main():
         dog_blob_watershed_for_chunks)
     from iterseg_tpu_torch.ops import flood_kernel as fk
     from iterseg_tpu_torch.ops import image_flood_kernel as ifk
+    from iterseg_tpu_torch.ops import window_attention as wa
     from iterseg_tpu_torch.ops.watershed import segment_output_image
     from iterseg_tpu_torch.train.labels import get_training_labels
 
@@ -1412,10 +1566,11 @@ def main():
         return time.perf_counter() - t
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(4) as pool:
+    with ThreadPoolExecutor(5) as pool:
         jobs = {name: pool.submit(timed, fn) for name, fn in (
             ("affinity_flood", fk.build), ("image_flood", ifk.build),
-            ("native", native.get_lib), ("zstd", zstd.get_lib))}
+            ("window_attention", wa.build), ("native", native.get_lib),
+            ("zstd", zstd.get_lib))}
         each = {name: j.result() for name, j in jobs.items()}
     emit({"phase": "build", "gpu": gpu, "build_s": time.perf_counter() - t0,
           "build_s_each": each, "native_loaded": native.loaded(),
@@ -1705,7 +1860,13 @@ def main():
     with tempfile.TemporaryDirectory() as work:
         emit(run_orbax(vol, kwargs, main_labels["pallas"], work))
 
-    # 16. each kernel on its path's own inputs
+    # 16. Swin UNETR on the affinity path, and its attention kernel; the
+    # kernel's launch count set to 0 just before the segmentation
+    with tempfile.TemporaryDirectory() as work:
+        swin_line, swin_row = run_swin(dev, work)
+    emit(swin_line)
+
+    # 17. each kernel on its path's own inputs
     kernels = []
     for name, mod, flood, plain, calls, path_launches, line, in_bytes in (
             ("affinity_flood", fk, fk.affinity_flood,
@@ -1755,6 +1916,7 @@ def main():
             "free_voxels": free,
             "library_ms": None,
         })
+    kernels.append(swin_row)
     emit({"kernels": kernels})
     print(gpu_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

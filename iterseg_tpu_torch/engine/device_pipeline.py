@@ -328,9 +328,10 @@ def _drive_stack(stack, output_labels, skip_labelled, devices,
         yield jt
 
 
-def _valid_grid(zyx, chunk_size, margin):
-    """Pad/clamp logic shared with predict_volume: z even, y/x %16 chunks."""
-    mults = (2, 16, 16)
+def _valid_grid(zyx, chunk_size, margin, mults=(2, 16, 16)):
+    """Pad/clamp logic shared with predict_volume: each chunk axis a
+    multiple of ``mults`` (the model's ``chunk_multiples``; by default the
+    U-Net's: z even, y/x %16)."""
     pads = []
     for s, c, m in zip(zyx, chunk_size, mults):
         usable = min(c, s)
@@ -376,7 +377,8 @@ def _build_feature_program(model, zyx, chunk_size, margin, microbatch,
     uploaded once and converted (and /max-normalised) on the device
     (``_upload_frame``: on CUDA the host does not wait for the card), then
     the margin-cropped pieces concatenated back together."""
-    pads, padded, chunk, marg = _valid_grid(zyx, chunk_size, margin)
+    pads, padded, chunk, marg = _valid_grid(zyx, chunk_size, margin,
+                                            model.chunk_multiples)
     starts, crops = make_chunks(padded, chunk, marg)
     n = len(starts)
     B = int(min(microbatch, n))
@@ -447,10 +449,12 @@ def get_feature_program(model, zyx, chunk_size=(10, 256, 256),
     if microbatch is None:
         from .predict import _pick_batch_size
 
-        _, padded, chunk, marg = _valid_grid(zyx, chunk_size, margin)
+        _, padded, chunk, marg = _valid_grid(zyx, chunk_size, margin,
+                                             model.chunk_multiples)
         starts, _ = make_chunks(padded, chunk, marg)
         microbatch = _pick_batch_size(len(starts), chunk,
-                                      model.out_channels, device)
+                                      model.out_channels, device,
+                                      model.activation_bytes(chunk))
     return _build_feature_program(model, zyx, chunk_size, margin,
                                   int(microbatch), normalize)
 

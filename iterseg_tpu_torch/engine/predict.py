@@ -20,6 +20,7 @@ from ..core.chunks import make_chunks, chunk_slices, process_chunks  # noqa: F40
 from ..device import resolve_device
 from ..models.convert import (infer_spec_from_params, load_checkpoint,
                               params_from_numpy)
+from ..models.unet import UNetSpec
 from ..utils import count
 
 __all__ = [
@@ -53,7 +54,8 @@ def _as_dtype(dtype) -> torch.dtype:
 
 
 class UNetModel:
-    """A loaded U-Net: flat numpy params, their spec, the compute dtype, and
+    """A loaded network: flat numpy params, their spec (a ``UNetSpec``, or a
+    ``SwinUNETRSpec`` for a Swin UNETR checkpoint), the compute dtype, and
     one ``nn.Module`` copy per device."""
 
     def __init__(self, params, spec=None, compute_dtype=torch.float32):
@@ -77,6 +79,17 @@ class UNetModel:
     @property
     def out_channels(self) -> int:
         return self.spec.total_out
+
+    @property
+    def chunk_multiples(self):
+        """What each chunk axis must be a multiple of (the chunk grid rounds
+        its chunks to them)."""
+        return self.spec.chunk_multiples
+
+    def activation_bytes(self, chunk) -> int:
+        """Activation bytes a chunk of this shape takes in a forward (the
+        microbatch budget's unit)."""
+        return self.spec.activation_bytes(chunk)
 
     def module(self, device) -> torch.nn.Module:
         """The network on ``device`` in the compute dtype (eval mode). On
@@ -108,8 +121,9 @@ class UNetModel:
 
 
 def load_unet(u_state_fn=None, compute_dtype=torch.float32) -> UNetModel:
-    """Load a U-Net checkpoint (``.npz``, ``.pt`` or an orbax directory);
-    ``None`` reads the bundled ``iterseg_tpu/data/default_unet.npz``."""
+    """Load a U-Net checkpoint (``.npz``, ``.pt`` or an orbax directory), or
+    a Swin UNETR one (a MONAI state dict, told by its keys); ``None`` reads
+    the bundled ``iterseg_tpu/data/default_unet.npz``."""
     if u_state_fn is None:
         u_state_fn = DEFAULT_UNET_PATH
         if not os.path.exists(u_state_fn):
@@ -138,16 +152,16 @@ def _memory_budget(device) -> int:
 
 
 def _pick_batch_size(n_chunks: int, chunk_shape, out_channels: int,
-                     device=None) -> int:
+                     device=None, bytes_per_item=None) -> int:
     """Microbatch size: minimise ``padded_forwards × (1 + 0.7/B)`` (the last
     microbatch is padded to B; ties go to the larger B) under an activation
     budget — a quarter of the card's memory on CUDA, 8 GiB on the CPU — and
-    a fixed cap of 8. The fast and the generic path both resolve through
-    this one function, so the forward (and its numerics) is the same."""
-    voxels = int(np.prod(chunk_shape))
-    # dominant activation: 32 channels at full resolution, f32, x2 for
-    # encoder+decoder copies
-    bytes_per_item = voxels * 32 * 4 * 4
+    a fixed cap of 8. ``bytes_per_item``: a chunk's activation bytes (the
+    model's ``activation_bytes``; by default the U-Net's). The fast and the
+    generic path both resolve through this one function, so the forward
+    (and its numerics) is the same."""
+    if bytes_per_item is None:
+        bytes_per_item = UNetSpec().activation_bytes(chunk_shape)
     b_mem = max(1, _memory_budget(device) // max(bytes_per_item, 1))
     b_max = int(min(b_mem, n_chunks, _MICROBATCH_CAP))
     best, best_cost = 1, float("inf")

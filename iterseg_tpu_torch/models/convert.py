@@ -8,6 +8,11 @@ stride=k, groups=C).weight`` — and BatchNorm running stats per channel. So
 ``params_from_numpy`` is a 1:1 ``load_state_dict`` with a strict key check;
 ``num_batches_tracked`` is synthesised, as torch expects it.
 
+A Swin UNETR state dict (MONAI's names, ``models/swin_unetr.py``) is told
+from a U-Net's by its keys (``swin_unetr.is_swin_unetr``):
+``infer_spec_from_params`` then gives a ``SwinUNETRSpec`` and
+``params_from_numpy`` builds a ``SwinUNETR``, loaded as strictly.
+
 Formats: ``.npz`` (native), ``.pt``/``.pth`` (torch state dicts) and orbax
 checkpoint directories, read and written by the port's own
 ``io/orbax_ckpt.py`` (no orbax, tensorstore or JAX needed).
@@ -21,6 +26,7 @@ import numpy as np
 import torch
 
 from ..io.orbax_ckpt import read_orbax, write_orbax
+from . import swin_unetr
 from .unet import UNet, UNetSpec
 
 __all__ = [
@@ -36,8 +42,11 @@ __all__ = [
 _SKIP_SUFFIXES = ("num_batches_tracked",)
 
 
-def infer_spec_from_params(params) -> UNetSpec:
-    """Recover the UNetSpec from parameter shapes (forks + channel counts)."""
+def infer_spec_from_params(params):
+    """Recover the spec from parameter shapes: a ``SwinUNETRSpec`` for a
+    Swin UNETR state dict, else the UNetSpec (forks + channel counts)."""
+    if swin_unetr.is_swin_unetr(params):
+        return swin_unetr.spec_from_params(params)
     in_channels = params["c0.conv0.weight"].shape[1]
     forks = []
     i = 0
@@ -48,12 +57,13 @@ def infer_spec_from_params(params) -> UNetSpec:
     return UNetSpec(in_channels=in_channels, out_channels=out)
 
 
-def params_from_numpy(params: Mapping[str, np.ndarray],
-                      spec: UNetSpec = None) -> UNet:
-    """A CPU ``UNet`` in eval mode holding ``params`` (flat numpy arrays
-    under state-dict keys). Raises on missing or unexpected keys."""
+def params_from_numpy(params: Mapping[str, np.ndarray], spec=None):
+    """A CPU ``UNet`` (a ``SwinUNETR`` for a ``SwinUNETRSpec``) in eval
+    mode holding ``params`` (flat numpy arrays under state-dict keys).
+    Raises on missing or unexpected keys."""
     spec = spec if spec is not None else infer_spec_from_params(params)
-    net = UNet(spec)
+    swin = isinstance(spec, swin_unetr.SwinUNETRSpec)
+    net = swin_unetr.SwinUNETR(spec) if swin else UNet(spec)
     sd = {k: torch.from_numpy(np.array(v, dtype=np.float32, copy=True))
           for k, v in params.items() if not k.endswith(_SKIP_SUFFIXES)}
     for k in list(sd):
@@ -61,10 +71,12 @@ def params_from_numpy(params: Mapping[str, np.ndarray],
             sd[k.replace("running_var", "num_batches_tracked")] = (
                 torch.tensor(0, dtype=torch.int64))
     net.load_state_dict(sd, strict=True)
+    if swin:
+        net.check_index()
     return net.eval()
 
 
-def params_to_numpy(net: UNet) -> Dict[str, np.ndarray]:
+def params_to_numpy(net) -> Dict[str, np.ndarray]:
     """The flat numpy parameter dict of ``net`` (inverse of
     ``params_from_numpy``)."""
     return {k: v.detach().cpu().float().numpy().copy()

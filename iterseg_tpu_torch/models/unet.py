@@ -34,6 +34,7 @@ from __future__ import annotations
 
 from typing import Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -81,6 +82,15 @@ class UNetSpec:
     @property
     def total_out(self):
         return sum(self.out_channels)
+
+    # the chunk axes the network takes: z even, y and x multiples of 16
+    chunk_multiples = (2, 16, 16)
+
+    def activation_bytes(self, chunk) -> int:
+        """Activation bytes of one chunk in a forward, for the microbatch
+        budget: 32 channels at full resolution, float32, x4 for the
+        encoder and decoder copies."""
+        return int(np.prod(chunk)) * 32 * 4 * 4
 
 
 def _final_activation(x, kind):

@@ -36,6 +36,7 @@ import torch
 import torch.nn as nn
 
 from ..device import f32_numerics, resolve_device
+from ..models.swin_unetr import SwinUNETRSpec
 from ..models.unet import UNet, XSplit
 
 __all__ = [
@@ -195,11 +196,20 @@ def _net_holding(spec, state):
     return net.eval()
 
 
+def _unet_only(spec):
+    """Raise ``ValueError`` for a Swin UNETR: the mesh paths run the
+    U-Net's ``forward_shards``, which it has not."""
+    if isinstance(spec, SwinUNETRSpec):
+        raise ValueError("the mesh paths run the U-Net only; a Swin UNETR "
+                         "runs whole frames on each card (devices=[...])")
+
+
 def sharded_apply(params, spec, mesh: Mesh):
     """The eval forward over the mesh's blocks: ``params`` is
     ``replicate_params``' list; ``run(x)`` takes an (N, C, z, y, x) batch
     (``data_sharding``'s rules) and returns the (N, C', z, y, x) float32
     output gathered on the first device."""
+    _unet_only(spec)
     dp, sp, devices = _grid(mesh)
     if len(params) != len(devices):
         raise ValueError(f"{len(params)} parameter copies for the "
@@ -305,6 +315,7 @@ def make_sharded_train_step(mesh: Mesh, net: UNet, loss_fn, optimizer,
     and in ``optimizer`` (over ``net``'s parameters)."""
     from ..train.losses import channel_losses
 
+    _unet_only(net.spec)
     _, sp, devices = _grid(mesh)
     shard = data_sharding(mesh)
 
@@ -344,6 +355,7 @@ def sharded_predict_volume(model, volume, mesh: Mesh,
     from ..core.chunks import chunk_slices, make_chunks
 
     dp, sp, devices = _grid(mesh)
+    _unet_only(model.spec)
     nets = [model.module(d) for d in devices]
     volume = np.asarray(volume, dtype=np.float32)
     zyx = volume.shape[-3:]

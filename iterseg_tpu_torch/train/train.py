@@ -45,6 +45,7 @@ from ..device import f32_numerics, resolve_device
 from ..helpers import LINE, write_csv, write_log, write_tiff
 from ..models.convert import (load_checkpoint, params_from_numpy,
                               params_to_numpy, save_checkpoint)
+from ..models.swin_unetr import is_swin_unetr
 from ..models.unet import UNet, UNetSpec
 from ..utils import span
 from .losses import channel_losses, make_loss_function
@@ -148,6 +149,10 @@ def train_unet(
             params = load_checkpoint(weights)
         else:
             params = {k: np.asarray(v) for k, v in dict(weights).items()}
+        if is_swin_unetr(params):
+            raise ValueError("train_unet trains the U-Net; a Swin UNETR "
+                             "checkpoint cannot be trained (its window "
+                             "attention has no backward)")
         net = params_from_numpy(params, spec)
         weights_are = "pretrained"
     net = net.to(dev).train()

@@ -774,3 +774,49 @@ def test_whole_frame_upload_equals_slab_by_slab_on_card(platelet_stack, cuda,
         mp.setattr(dp, "_upload_frame", slab_by_slab(program))
         want = program(vol, cuda)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dims,width,heads,shifted", [
+    ((48, 48, 48), 48, 3, False), ((48, 48, 48), 48, 3, True),
+    ((12, 4, 12), 48, 3, True), ((6, 6, 6), 384, 24, False)])
+def test_window_attention_kernel_matches_the_reference(cuda, dims, width,
+                                                       heads, shifted):
+    """The CUDA window-attention kernel against its plain version (the
+    scores in memory) at stage 0 of a 96^3 chunk (C 48, 3 heads, 48^3
+    tokens padded to 49^3, 7^3 windows, unshifted and shifted), a clipped
+    axis in a shifted block, and stage 3's single clipped 6^3 window (C 384,
+    24 heads); and one whole block of the program against the reference's
+    (``portbench/reference/swin_unetr.py``). 1e-5: float32 products summed
+    in another order and the online softmax's rescaling on O(1) outputs
+    (2.1e-6 measured)."""
+    import sys
+
+    from iterseg_tpu_torch.device import f32_numerics
+    from iterseg_tpu_torch.models import swin_unetr as swin
+    from iterseg_tpu_torch.ops import window_attention as wa
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "portbench"))
+    from reference import swin_unetr as ref
+
+    window, shift = swin.window_and_shift(dims, shifted)
+    grid = tuple(-(-d // w) * w for d, w in zip(dims, window))
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    qkv = torch.randn((2,) + grid + (3 * width,), device=cuda, generator=gen)
+    table = torch.randn((13 ** 3, heads), device=cuda, generator=gen)
+    before = wa.launches()
+    with f32_numerics():
+        got = wa.window_attention(qkv, table, heads, window, shift)
+        want = wa.window_attention_plain(qkv, table, heads, window, shift)
+    assert wa.launches() == before + 1
+    assert float((got - want).abs().max()) <= 1e-5
+
+    block = swin.SwinBlock(width, heads, shifted).to(cuda)
+    with torch.no_grad():
+        block.attn.relative_position_bias_table.copy_(table * 0.02)
+    x = torch.randn((1,) + dims + (width,), device=cuda, generator=gen)
+    p = {"b." + k: v for k, v in block.state_dict().items()}
+    with torch.no_grad(), f32_numerics():
+        got = block(x)
+        want = ref._block(p, "b.", x, shifted)
+    assert float((got - want).abs().max()) <= 1e-5
