@@ -141,7 +141,13 @@ several: phases ``multi`` and ``space`` use them all), the CUDA toolkit (``nvcc`
    its bound, and for the floods their steps and tile-steps (equal to the
    plain frontier schedule's) and the split of their time into the init
    kernel and the step kernel; the window-attention kernel's row has
-   phase 16's stage-0 numbers, with SDPA's ms as ``library_ms``.
+   phase 16's stage-0 numbers, with SDPA's ms as ``library_ms``;
+18. ``host_flood``: the exact host flood's bucketed queue
+   (``native.priority_flood``) against its heap (``priority_flood_heap``)
+   on a seeded (96, 512, 512) frame, a blob mask of 12.5% and 4,900 seeds,
+   with smooth sigmoid affinities (gain 4) and saturated ones (gain 40):
+   labels equal voxel for voxel, no fallback, both times (the host's, not
+   the card's) and each one's peak queue size.
 
 Then the card's name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -1387,6 +1393,87 @@ def run_orbax(vol, kwargs, want, work):
     return line
 
 
+def host_flood_fixture(shape, gain, seed):
+    """The exact host flood's arguments on a (z, y, x) frame, padded as the
+    pipeline pads it: a blob mask of 12.5% of the voxels, 4,900 seeds at
+    random in it (a (96, 512, 512) frame's worth, scaled by volume) with
+    labels 1..n, and three smooth sigmoid affinity channels of ``gain``,
+    each divided by its maximum."""
+    import numpy as np
+    from scipy import ndimage as ndi
+
+    from iterseg_tpu_torch.ops.watershed_oracle import neighbor_offsets
+
+    r = np.random.default_rng(seed)
+    scale = np.prod(shape) / (96 * 512 * 512)
+    vol = np.zeros(shape, np.float32)
+    pts = np.stack([r.integers(2, s - 2, size=int(2700 * scale))
+                    for s in shape], 1)
+    vol[tuple(pts.T)] = 1.0
+    vol = ndi.gaussian_filter(vol, (2, 4, 4))
+    mask = np.pad(vol > np.quantile(vol, 0.875), 1).astype(np.uint8)
+    del vol
+    pshape = mask.shape
+    aff = np.empty((3, mask.size), np.float32)
+    for c in range(3):
+        noise = ndi.gaussian_filter(
+            r.standard_normal(shape).astype(np.float32), 2)
+        with np.errstate(over="ignore"):
+            a = 1 / (1 + np.exp(-gain * noise / noise.std()))
+        aff[c] = np.pad(a / a.max(), 1).ravel()
+    markers = r.permutation(np.flatnonzero(mask))[:int(4900 * scale)]
+    offsets, axes = neighbor_offsets(pshape)
+    val_off = offsets.copy()
+    val_off[:len(offsets) // 2] = 0
+    seeded = np.zeros(mask.size, np.int32)
+    seeded[markers] = np.arange(1, len(markers) + 1, dtype=np.int32)
+    return ((aff, offsets, axes, val_off, markers,
+             np.zeros(len(markers), np.float32), mask.ravel()), seeded)
+
+
+def run_host_flood(shape=(96, 512, 512), reps=2):
+    """Phase 18: the bucketed queue against the heap on
+    ``host_flood_fixture`` frames of gain 4 and 40, ``reps`` runs each,
+    alternated; labels equal, no fallback. Times are the host's."""
+    import numpy as np
+
+    from iterseg_tpu_torch import native
+
+    lib = native.get_lib()
+
+    def flood(entry, args, seeded):
+        output = seeded.copy()
+        t0 = time.perf_counter()
+        peak = native._flood(entry, *args, output)
+        return output, time.perf_counter() - t0, peak
+
+    cases = []
+    for gain in (4, 40):
+        args, seeded = host_flood_fixture(shape, gain, 18)
+        times = {"heap": [], "queue": []}
+        for _ in range(reps):
+            heap, t_heap, heap_peak = flood(lib.priority_flood_heap, args,
+                                            seeded)
+            queue, t_queue, queue_peak = flood(lib.priority_flood, args,
+                                               seeded)
+            check(np.array_equal(heap, queue),
+                  f"gain {gain}: the queue's labels differ from the heap's")
+            check(queue_peak >= 0,
+                  f"gain {gain}: the queue fell back to the heap")
+            times["heap"].append(t_heap)
+            times["queue"].append(t_queue)
+        cases.append({"gain": gain,
+                      "mask_share": float(args[-1].sum() / np.prod(shape)),
+                      "seeds": len(args[4]),
+                      "labelled": int((queue > 0).sum()),
+                      "heap_s": times["heap"], "queue_s": times["queue"],
+                      "speedup": min(times["heap"]) / min(times["queue"]),
+                      "heap_peak": heap_peak, "queue_peak": queue_peak})
+        del args, seeded, heap, queue
+    return {"phase": "host_flood", "frame": list(shape),
+            "cpus": os.cpu_count(), "cases": cases}
+
+
 def window_attention_case(qkv, table, heads, window, shift):
     """The window-attention kernel on one stage's tokens against its plain
     version, and ``scaled_dot_product_attention`` given the windows and
@@ -1918,6 +2005,9 @@ def main():
         })
     kernels.append(swin_row)
     emit({"kernels": kernels})
+
+    # 18. the exact host flood: the bucketed queue against the heap
+    emit(run_host_flood())
     print(gpu_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,12 +1,14 @@
 """Native (C++) host kernels, built lazily and loaded via ctypes.
 
-The port's own copy of ``iterseg_tpu/native``: the same source
-(``priority_flood.cpp``) and the same ctypes signatures. The priority-flood
-watershed is the one inherently sequential hot loop of the inference
-pipeline (a heap-ordered flood; see ``ops/watershed_oracle.py`` for the
-semantics); ``bucket_flood_image`` is its exact bucket-queue twin for the
-DoG path's integer squared distances. It runs on host, under the GPU's work on the next frame, as an
--O3 C++ kernel.
+The port's own copy of ``iterseg_tpu/native``, with the same ctypes
+signatures. The priority-flood watershed is the one inherently sequential
+hot loop of the inference pipeline (a heap-ordered flood; see
+``ops/watershed_oracle.py`` for the semantics). ``priority_flood`` pops in
+the heap's order from a bucketed queue over packed (value, age) keys, with
+the JAX package's binary heap as its fallback (``priority_flood_heap``);
+``bucket_flood_image`` is its exact bucket-queue twin for the DoG path's
+integer squared distances. It runs on host, under the GPU's work on the
+next frame, as an -O3 C++ kernel.
 
 The shared library is compiled on first use with the system ``g++`` into the
 port's build directory (``_build.build_dir``); set
@@ -24,6 +26,7 @@ import threading
 import numpy as np
 
 from .._build import build_library
+from ..utils import count
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_HERE, "priority_flood.cpp")
@@ -109,20 +112,21 @@ def get_lib():
             ctypes.c_int64,
             ctypes.c_int64,
         ]
-        lib.priority_flood.restype = None
-        lib.priority_flood.argtypes = [
-            ctypes.POINTER(ctypes.c_float),   # values
-            ctypes.POINTER(ctypes.c_int64),   # offsets
-            ctypes.POINTER(ctypes.c_int64),   # val_chan
-            ctypes.POINTER(ctypes.c_int64),   # val_off
-            ctypes.c_int32,                   # n_nbr
-            ctypes.POINTER(ctypes.c_int64),   # markers
-            ctypes.c_int64,                   # n_markers
-            ctypes.POINTER(ctypes.c_float),   # seed_values
-            ctypes.POINTER(ctypes.c_uint8),   # mask
-            ctypes.POINTER(ctypes.c_int32),   # output
-            ctypes.c_int64,                   # n
-        ]
+        for flood in (lib.priority_flood, lib.priority_flood_heap):
+            flood.restype = ctypes.c_int64
+            flood.argtypes = [
+                ctypes.POINTER(ctypes.c_float),   # values
+                ctypes.POINTER(ctypes.c_int64),   # offsets
+                ctypes.POINTER(ctypes.c_int64),   # val_chan
+                ctypes.POINTER(ctypes.c_int64),   # val_off
+                ctypes.c_int32,                   # n_nbr
+                ctypes.POINTER(ctypes.c_int64),   # markers
+                ctypes.c_int64,                   # n_markers
+                ctypes.POINTER(ctypes.c_float),   # seed_values
+                ctypes.POINTER(ctypes.c_uint8),   # mask
+                ctypes.POINTER(ctypes.c_int32),   # output
+                ctypes.c_int64,                   # n
+            ]
         _lib = lib
         return _lib
 
@@ -131,10 +135,11 @@ def _ptr(arr, ctype):
     return arr.ctypes.data_as(ctypes.POINTER(ctype))
 
 
-def priority_flood(values, offsets, val_chan, val_off, markers, seed_values,
-                   mask, output):
-    """Run the native flood in place on ``output`` (raveled int32)."""
-    lib = get_lib()
+def _flood(entry, values, offsets, val_chan, val_off, markers, seed_values,
+           mask, output):
+    """Call the C flood ``entry`` in place on ``output``; returns what it
+    returns: the most elements its queue held, or for ``priority_flood``
+    -1 less the heap's most where the heap ran."""
     values = np.ascontiguousarray(values, dtype=np.float32)
     offsets = np.ascontiguousarray(offsets, dtype=np.int64)
     val_chan = np.ascontiguousarray(val_chan, dtype=np.int64)
@@ -143,8 +148,7 @@ def priority_flood(values, offsets, val_chan, val_off, markers, seed_values,
     seed_values = np.ascontiguousarray(seed_values, dtype=np.float32)
     mask = np.ascontiguousarray(mask, dtype=np.uint8)
     assert output.dtype == np.int32 and output.flags.c_contiguous
-    n = mask.size
-    lib.priority_flood(
+    return entry(
         _ptr(values, ctypes.c_float),
         _ptr(offsets, ctypes.c_int64),
         _ptr(val_chan, ctypes.c_int64),
@@ -155,8 +159,31 @@ def priority_flood(values, offsets, val_chan, val_off, markers, seed_values,
         _ptr(seed_values, ctypes.c_float),
         _ptr(mask, ctypes.c_uint8),
         _ptr(output, ctypes.c_int32),
-        ctypes.c_int64(n),
+        ctypes.c_int64(mask.size),
     )
+
+
+def priority_flood(values, offsets, val_chan, val_off, markers, seed_values,
+                   mask, output):
+    """Run the native flood in place on ``output`` (raveled int32).
+
+    The bucketed queue over packed (value, age) keys; where it cannot keep
+    the heap's order (a NaN value, a label at or below 0 at a marker or
+    below 0 anywhere, over 2^32 voxels and seeds) the heap runs instead,
+    from the caller's seeded ``output``, with the counter
+    ``flood_heap_fallback``."""
+    if _flood(get_lib().priority_flood, values, offsets, val_chan, val_off,
+              markers, seed_values, mask, output) < 0:
+        count("flood_heap_fallback")
+    return output
+
+
+def priority_flood_heap(values, offsets, val_chan, val_off, markers,
+                        seed_values, mask, output):
+    """``priority_flood``'s fallback alone, the binary heap over (value,
+    age, index): its oracle. Same arguments."""
+    _flood(get_lib().priority_flood_heap, values, offsets, val_chan, val_off,
+           markers, seed_values, mask, output)
     return output
 
 

@@ -8,20 +8,38 @@
 //    (connectivity 1, compactness 0): pushed value = image value at the
 //    claimed voxel, seeds pushed with the image value at the seed.
 //
-// Exact heap-order semantics: a binary min-heap over (value, age, index)
-// compared lexicographically; ages increase monotonically with pushes so
-// insertion order breaks value ties, and index breaks the initial
-// all-age-zero seed ties — identical to Python heapq over
+// Exact heap-order semantics: elements pop in the order of (value, age,
+// index) compared lexicographically; ages increase monotonically with
+// pushes so insertion order breaks value ties, and index breaks the
+// initial all-age-zero seed ties — identical to Python heapq over
 // Element(value, age, index, source).
 //
 // Claim-at-push: when an element pops, every in-mask unlabelled neighbour
 // immediately takes its label and is enqueued. This is the sequential hot
 // loop of inference; it runs on host while the GPU computes the next
 // frame's feature maps.
+//
+// Two implementations of that one order:
+//  * the bucketed queue (``queue_flood``, the default): 16-byte elements
+//    keyed by one uint64, ``order_bits(value) << 32 | age``, in buckets by
+//    the key's high bits, each sorted once when it becomes the lowest
+//    (``BucketQueue``); one int32 state array (-1 outside the mask, 0
+//    unlabelled, else the label) in place of the mask and output reads; a
+//    prefetch of the neighbourhood of the element that pops next. Seeds
+//    take ages 0..S-1 in order of voxel index and pushes ages from S up, so
+//    the key order is the (value, age, index) order wherever that
+//    comparator is a strict weak order.
+//  * the binary heap over (float value, int64 age, int64 index)
+//    (``heap_flood``): the fallback, taken where that comparator is not a
+//    strict weak order (a NaN value), where a label is at or below 0 (the
+//    state array's codes), or where the voxel count or the ages do not fit
+//    in 32 bits; and the oracle the queue is tested against.
 
+#include <algorithm>
 #include <cmath>
 #include <cstdint>
 #include <cstring>
+#include <numeric>
 #include <vector>
 
 namespace {
@@ -45,6 +63,7 @@ class MinHeap {
   explicit MinHeap(size_t reserve) { data_.reserve(reserve); }
 
   bool empty() const { return data_.empty(); }
+  size_t size() const { return data_.size(); }
 
   void push(Elem e) {
     data_.push_back(e);
@@ -87,27 +106,18 @@ class MinHeap {
   std::vector<Elem> data_;
 };
 
-}  // namespace
-
-extern "C" {
-
-// values:     (n_chan, n) row-major raveled value channels
-// offsets:    (n_nbr,) signed raveled neighbour offsets
-// val_chan:   (n_nbr,) value channel per direction
-// val_off:    (n_nbr,) value sample offset added to the POPPED index
-// markers:    (n_markers,) raveled seed indices; output must be pre-seeded
-// seed_values:(n_markers,) heap value for each seed push
-// mask:       (n,) uint8; border ring must be 0 (callers pad)
-// output:     (n,) int32 labels, pre-seeded at markers
-void priority_flood(const float* values, const int64_t* offsets,
-                    const int64_t* val_chan, const int64_t* val_off,
-                    int32_t n_nbr, const int64_t* markers, int64_t n_markers,
-                    const float* seed_values, const uint8_t* mask,
-                    int32_t* output, int64_t n) {
+// The heap flood over the caller's mask and pre-seeded output; returns the
+// largest number of elements the heap held.
+int64_t heap_flood(const float* values, const int64_t* offsets,
+                   const int64_t* val_chan, const int64_t* val_off,
+                   int32_t n_nbr, const int64_t* markers, int64_t n_markers,
+                   const float* seed_values, const uint8_t* mask,
+                   int32_t* output, int64_t n) {
   MinHeap heap(static_cast<size_t>(n_markers) + 1024);
   for (int64_t i = 0; i < n_markers; ++i) {
     heap.push(Elem{seed_values[i], 0, markers[i]});
   }
+  size_t peak = heap.size();
   int64_t age = 0;
   while (!heap.empty()) {
     Elem e = heap.pop();
@@ -122,9 +132,299 @@ void priority_flood(const float* values, const int64_t* offsets,
       ++age;
       heap.push(Elem{v, age, nbr});
     }
+    peak = std::max(peak, heap.size());
   }
+  return static_cast<int64_t>(peak);
 }
 
+// A uint32 whose unsigned order is the float's order, with -0.0 taken as
+// +0.0 (they compare equal): the sign bit set for non-negatives, every bit
+// flipped for negatives.
+inline uint32_t order_bits(float v) {
+  uint32_t b;
+  std::memcpy(&b, &v, sizeof b);
+  if (b == 0x80000000u) b = 0u;
+  return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
+}
+
+struct QElem {
+  uint64_t key;  // order_bits(value) << 32 | age
+  uint32_t index;
+};
+
+// Min-queue of QElem in 2^16 buckets by the key's top 16 bits (sign,
+// exponent and 7 mantissa bits: 128 buckets a binade). A bucket fills as a
+// run in push order, which is age order. When it becomes the lowest
+// non-empty bucket it is sorted once, by a stable radix sort on the 16
+// order bits under the bucket's (ages keep their order), and consumed from
+// the front; an element pushed into it after that goes to the bucket's
+// heap, and pops take the lower of the run's front and the heap's top. A
+// two-level bitmap of the non-empty buckets finds the next one; a push
+// below the lowest moves ``cur_`` down.
+class BucketQueue {
+ public:
+  static constexpr int kBits = 16;
+  static constexpr uint32_t kBuckets = 1u << kBits;
+  static constexpr size_t kRadixMin = 256;  // std::sort below this
+
+  BucketQueue() : buckets_(kBuckets), words_(kBuckets / 64, 0), top_{} {}
+
+  bool empty() const { return size_ == 0; }
+  size_t size() const { return size_; }
+
+  void push(QElem e) {
+    const uint32_t b = static_cast<uint32_t>(e.key >> (64 - kBits));
+    Bucket& bucket = buckets_[b];
+    if (bucket.sorted) {
+      heap_push(bucket.heap, e);
+    } else {
+      if (bucket.run.empty()) mark(b);
+      bucket.run.push_back(e);
+    }
+    ++size_;
+  }
+
+  // The element that pops next (the queue must not be empty).
+  const QElem& peek() {
+    Bucket& bucket = lowest();
+    return from_run(bucket) ? bucket.run[bucket.head] : bucket.heap[0];
+  }
+
+  QElem pop() {
+    Bucket& bucket = lowest();
+    const QElem top =
+        from_run(bucket) ? bucket.run[bucket.head++] : heap_pop(bucket.heap);
+    if (bucket.head == bucket.run.size() && bucket.heap.empty()) {
+      bucket.run.clear();
+      bucket.head = 0;
+      bucket.sorted = false;
+      const uint32_t b = cur_;
+      words_[b >> 6] &= ~(1ull << (b & 63));
+      if (words_[b >> 6] == 0) top_[b >> 12] &= ~(1ull << ((b >> 6) & 63));
+      cur_ = next_bucket(b);
+    }
+    --size_;
+    return top;
+  }
+
+ private:
+  struct Bucket {
+    std::vector<QElem> run;   // push order, or sorted from ``head`` on
+    std::vector<QElem> heap;  // pushes after the run was sorted
+    size_t head = 0;
+    bool sorted = false;
+  };
+
+  void mark(uint32_t b) {
+    words_[b >> 6] |= 1ull << (b & 63);
+    top_[b >> 12] |= 1ull << ((b >> 6) & 63);
+    if (b < cur_) cur_ = b;
+  }
+
+  Bucket& lowest() {
+    Bucket& bucket = buckets_[cur_];
+    if (!bucket.sorted) sort_run(bucket);
+    return bucket;
+  }
+
+  static bool from_run(const Bucket& bucket) {
+    return bucket.head < bucket.run.size() &&
+           (bucket.heap.empty() ||
+            bucket.run[bucket.head].key < bucket.heap[0].key);
+  }
+
+  void sort_run(Bucket& bucket) {
+    std::vector<QElem>& run = bucket.run;
+    const size_t m = run.size();
+    if (m < kRadixMin) {
+      std::sort(run.begin(), run.end(),
+                [](const QElem& a, const QElem& b) { return a.key < b.key; });
+    } else {
+      tmp_.resize(m);
+      for (int shift = 32; shift < 64 - kBits; shift += 8) {
+        size_t count[257] = {};
+        for (size_t i = 0; i < m; ++i) {
+          ++count[((run[i].key >> shift) & 255) + 1];
+        }
+        for (int d = 0; d < 256; ++d) count[d + 1] += count[d];
+        for (size_t i = 0; i < m; ++i)
+          tmp_[count[(run[i].key >> shift) & 255]++] = run[i];
+        run.swap(tmp_);
+      }
+    }
+    bucket.sorted = true;
+    bucket.head = 0;
+  }
+
+  static bool later(const QElem& a, const QElem& b) { return a.key > b.key; }
+
+  static void heap_push(std::vector<QElem>& h, QElem e) {
+    h.push_back(e);
+    std::push_heap(h.begin(), h.end(), later);
+  }
+
+  static QElem heap_pop(std::vector<QElem>& h) {
+    std::pop_heap(h.begin(), h.end(), later);
+    const QElem top = h.back();
+    h.pop_back();
+    return top;
+  }
+
+  // The lowest non-empty bucket above ``b`` (kBuckets when none is).
+  uint32_t next_bucket(uint32_t b) const {
+    uint32_t w = b >> 6;
+    const uint64_t bits = words_[w] & (~1ull << (b & 63));
+    if (bits) return (w << 6) | __builtin_ctzll(bits);
+    ++w;
+    for (uint32_t t = w >> 6; t < kBuckets / 4096; ++t) {
+      uint64_t words = top_[t];
+      if (t == (w >> 6)) words &= ~0ull << (w & 63);
+      if (words) {
+        w = (t << 6) | __builtin_ctzll(words);
+        return (w << 6) | __builtin_ctzll(words_[w]);
+      }
+    }
+    return kBuckets;
+  }
+
+  std::vector<Bucket> buckets_;
+  std::vector<uint64_t> words_;    // bit b: bucket b is not empty
+  uint64_t top_[kBuckets / 4096];  // bit w: words_[w] is not zero
+  std::vector<QElem> tmp_;         // the radix sort's other buffer
+  uint32_t cur_ = kBuckets;
+  size_t size_ = 0;
+};
+
+// The bucketed-queue flood; returns the largest number of elements the
+// queue held, or -1 without a label written where the heap has to run.
+int64_t queue_flood(const float* values, const int64_t* offsets,
+                    const int64_t* val_chan, const int64_t* val_off,
+                    int32_t n_nbr, const int64_t* markers, int64_t n_markers,
+                    const float* seed_values, const uint8_t* mask,
+                    int32_t* output, int64_t n) {
+  if (n > (int64_t{1} << 32) - n_markers) return -1;
+  for (int64_t i = 0; i < n_markers; ++i) {
+    if (std::isnan(seed_values[i]) || output[markers[i]] <= 0) return -1;
+  }
+  // the state, in place: -1 outside the mask, 0 unlabelled, else the
+  // label; the caller's labels are kept to restore its output. Blocks
+  // without a label take the vectorised path.
+  std::vector<std::pair<int64_t, int32_t>> seeded;
+  seeded.reserve(static_cast<size_t>(n_markers));
+  constexpr int64_t kBlock = 64;
+  for (int64_t i0 = 0; i0 < n; i0 += kBlock) {
+    const int64_t i1 = std::min(i0 + kBlock, n);
+    int32_t any = 0;
+    for (int64_t i = i0; i < i1; ++i) any |= output[i];
+    if (any == 0) {
+      for (int64_t i = i0; i < i1; ++i) output[i] = (mask[i] != 0) - 1;
+      continue;
+    }
+    for (int64_t i = i0; i < i1; ++i) {
+      const int32_t o = output[i];
+      if (o > 0) {
+        seeded.emplace_back(i, o);
+      } else if (o == 0) {
+        output[i] = (mask[i] != 0) - 1;
+      } else {
+        for (int64_t j = 0; j < i; ++j) output[j] = std::max(output[j], 0);
+        return -1;
+      }
+    }
+  }
+  int32_t* state = output;
+
+  std::vector<int64_t> off(static_cast<size_t>(n_nbr));
+  std::vector<const float*> vbase(static_cast<size_t>(n_nbr));
+  for (int32_t k = 0; k < n_nbr; ++k) {
+    off[k] = offsets[k];
+    vbase[k] = values + val_chan[k] * n + val_off[k];
+  }
+
+  BucketQueue queue;
+  std::vector<int64_t> order(static_cast<size_t>(n_markers));
+  std::iota(order.begin(), order.end(), int64_t{0});
+  std::stable_sort(order.begin(), order.end(), [&](int64_t a, int64_t b) {
+    return markers[a] < markers[b];
+  });
+  uint32_t age = 0;
+  for (const int64_t i : order) {
+    queue.push(QElem{uint64_t{order_bits(seed_values[i])} << 32 | age++,
+                     static_cast<uint32_t>(markers[i])});
+  }
+  size_t peak = queue.size();
+  while (!queue.empty()) {
+    const QElem e = queue.pop();
+    const int64_t idx = e.index;
+    if (!queue.empty()) {
+      const int64_t next = queue.peek().index;
+      for (int32_t k = 0; k < n_nbr; ++k) {
+        __builtin_prefetch(state + next + off[k]);
+        __builtin_prefetch(vbase[k] + next);
+      }
+    }
+    const int32_t lab = state[idx];
+    for (int32_t k = 0; k < n_nbr; ++k) {
+      const int64_t nbr = idx + off[k];
+      if (nbr < 0 || nbr >= n) continue;
+      if (state[nbr]) continue;
+      const float v = vbase[k][idx];
+      if (std::isnan(v)) {  // restore the caller's output for the heap
+        std::memset(output, 0, static_cast<size_t>(n) * sizeof(int32_t));
+        for (const auto& s : seeded) output[s.first] = s.second;
+        return -1;
+      }
+      state[nbr] = lab;
+      queue.push(QElem{uint64_t{order_bits(v)} << 32 | age++,
+                       static_cast<uint32_t>(nbr)});
+    }
+    peak = std::max(peak, queue.size());
+  }
+  for (int64_t i = 0; i < n; ++i) output[i] = std::max(output[i], 0);
+  return static_cast<int64_t>(peak);
+}
+
+}  // namespace
+
+extern "C" {
+
+// values:     (n_chan, n) row-major raveled value channels
+// offsets:    (n_nbr,) signed raveled neighbour offsets
+// val_chan:   (n_nbr,) value channel per direction
+// val_off:    (n_nbr,) value sample offset added to the POPPED index
+// markers:    (n_markers,) raveled seed indices; output must be pre-seeded
+// seed_values:(n_markers,) heap value for each seed push
+// mask:       (n,) uint8; border ring must be 0 (callers pad)
+// output:     (n,) int32 labels, pre-seeded at markers
+//
+// Runs the bucketed queue, or the heap where the queue cannot keep the
+// order (a NaN value, a label at or below 0 at a marker or below 0
+// anywhere, more than 2^32 voxels and seeds). Returns the largest number
+// of elements the queue held, or -1 - the heap's largest where the heap
+// ran.
+int64_t priority_flood(const float* values, const int64_t* offsets,
+                       const int64_t* val_chan, const int64_t* val_off,
+                       int32_t n_nbr, const int64_t* markers,
+                       int64_t n_markers, const float* seed_values,
+                       const uint8_t* mask, int32_t* output, int64_t n) {
+  const int64_t peak =
+      queue_flood(values, offsets, val_chan, val_off, n_nbr, markers,
+                  n_markers, seed_values, mask, output, n);
+  if (peak >= 0) return peak;
+  return -1 - heap_flood(values, offsets, val_chan, val_off, n_nbr, markers,
+                         n_markers, seed_values, mask, output, n);
+}
+
+// The heap alone: the fallback's code, as the oracle of ``priority_flood``.
+// Returns the largest number of elements the heap held.
+int64_t priority_flood_heap(const float* values, const int64_t* offsets,
+                            const int64_t* val_chan, const int64_t* val_off,
+                            int32_t n_nbr, const int64_t* markers,
+                            int64_t n_markers, const float* seed_values,
+                            const uint8_t* mask, int32_t* output, int64_t n) {
+  return heap_flood(values, offsets, val_chan, val_off, n_nbr, markers,
+                    n_markers, seed_values, mask, output, n);
+}
 
 }  // extern "C"
 
