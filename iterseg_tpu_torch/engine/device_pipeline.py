@@ -42,7 +42,8 @@ past ``native.BUCKET_FLOOD_MAX_KEY``). With ``device_flood="pallas"`` the
 flood runs on the GPU in the hand-written CUDA image kernel
 (``ops/image_flood_kernel``) on ``-sqrt(d²)``, at every frame width;
 ``"xla"`` runs the torch hop-tie recurrence there, and ``"exact"`` the
-verified exact image flood on ``-d²``.
+verified exact image flood on ``-d²``. Both run one skeleton
+(``_Pipeline``).
 """
 from __future__ import annotations
 
@@ -64,7 +65,8 @@ __all__ = ["AffinityPipeline", "DoGPipeline", "get_feature_program",
            "flood_fallbacks", "reset_flood_fallbacks"]
 
 _CAND_CAP = 1 << 18  # max pre-sorted peak candidates shipped to host
-_FLOOD_MAX_LAUNCHES = 512
+# the device floods' cap: launches of a CUDA kernel, steps of a recurrence
+_FLOOD_MAX_STEPS = 512
 _flood_fallbacks = 0
 
 
@@ -195,23 +197,25 @@ def _tie_probe(mask_packed, aff_pad):
     return ties.sum().to(torch.float32) / n.to(torch.float32)
 
 
-def _crop_cast(lab, wide):
-    """Crop the padding ring and cast to the label wire dtype (uint16 when
-    the seed count allows)."""
-    return lab[1:-1, 1:-1, 1:-1].to(torch.int32 if wide else torch.uint16)
+def _integer_wire(dtype) -> bool:
+    """The frames' wire format: an integer frame of at most 4 bytes a voxel
+    crosses the link in its own dtype and is converted, and divided by its
+    max, on the device — bit-identical to the host's ``prepare_volume``
+    (int -> f32 rounds alike on both, max is exact selection, the same f32
+    division); any other frame crosses as float32."""
+    return bool(np.issubdtype(dtype, np.integer)
+                and np.dtype(dtype).itemsize <= 4)
 
 
 def _prepare_frame(raw):
-    """Per-frame input contract of the stack path: ``(vol, kept,
-    device_normalize)``. Integer frames (itemsize <= 4) keep their source
-    dtype for the upload and are normalised on the device — bit-identical
-    to ``prepare_volume``'s host ``/ max`` (int -> f32 is exact, max is
-    exact selection, the same f32 division). Float frames take the host
+    """Per-frame input contract of the device pipelines: ``(vol, kept,
+    device_normalize)``. Integer frames (``_integer_wire``) keep their
+    source dtype and are normalised on the device; others take the host
     ``prepare_volume`` path."""
     from ..core.volume import prepare_volume, remove_sum_zero_slices
 
     orig_shape = raw.shape
-    if np.issubdtype(raw.dtype, np.integer) and raw.dtype.itemsize <= 4:
+    if _integer_wire(raw.dtype):
         vol, kept = raw, None
         if vol.min() == 0:
             vol, kept = remove_sum_zero_slices(vol, return_kept=True)
@@ -354,12 +358,13 @@ def _upload_frame(vol, device, normalize):
     """The numpy volume ``vol`` as float32 on ``device``, divided by its max
     when ``normalize`` (the max of the converted volume: the host's
     ``np.max(vol.astype(np.float32))``, as int -> f32 is exact and max
-    selects). It is uploaded once, in its source dtype: on CUDA staged in
-    pinned memory and copied with ``non_blocking`` on the current stream,
-    so the host does not wait for the work queued there (a pageable copy
-    would); torch's pinned pool reuses the staging buffer only once that
-    copy has run."""
-    t = torch.from_numpy(np.ascontiguousarray(vol))
+    selects). It is uploaded once, in its wire dtype (``_integer_wire``):
+    on CUDA staged in pinned memory and copied with ``non_blocking`` on the
+    current stream, so the host does not wait for the work queued there (a
+    pageable copy would); torch's pinned pool reuses the staging buffer
+    only once that copy has run."""
+    t = torch.from_numpy(np.ascontiguousarray(
+        vol, None if _integer_wire(vol.dtype) else np.float32))
     if torch.device(device).type == "cuda":
         staged = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
         np.copyto(staged.numpy(), t.numpy())
@@ -475,53 +480,276 @@ def _pack_mask_bits(mask):
 _MODES = (False, "xla", "pallas", "exact")
 
 
-def _normalize_device_flood(value, device=None):
-    """The canonical ``device_flood`` setting: ``False`` (the exact host
-    flood), ``"xla"`` (the torch claim recurrence of ``ops/device_flood``),
-    ``"pallas"`` (the hand-written CUDA flood) or ``"exact"`` (the verified
-    exact flood of ``ops/flood_exact``, labels bit-equal to the host
-    flood's). ``True`` resolves as JAX resolves it, with the CUDA card in
-    the TPU's role: on a CUDA ``device`` (``None``: CUDA when a card is
-    visible) to ``"pallas"`` when the measured link rate
-    (``linkprobe.measure_link_mbps``) reaches
-    ``MEASURED["device_flood_crossover_mbps"]``, else to ``False``; on the
-    CPU to ``"xla"``. ``None`` is ``False``."""
-    if value is True:
-        if device is None:
-            device = "cuda" if torch.cuda.is_available() else "cpu"
-        device = torch.device(device)
-        if device.type == "cuda":
-            from . import linkprobe
-
-            mbps = linkprobe.measure_link_mbps(device)
-            value = ("pallas" if mbps is not None and mbps
-                     >= linkprobe.MEASURED["device_flood_crossover_mbps"]
-                     else False)
-        else:
-            value = "xla"
-    value = value or False
-    if value not in _MODES:
-        raise ValueError(f"unknown device_flood {value!r}; expected one of "
-                         "False, True, 'xla', 'pallas', 'exact'")
-    return value
-
-
 def _f32(x) -> float:
     """A python float that is exactly ``x`` rounded to float32, for
     scalars that JAX would take as weak-typed f32."""
     return float(np.float32(x))
 
 
-class AffinityPipeline:
-    """U-Net → watershed segmentation of one zyx volume, device-resident."""
+def _host_mask(mask_packed, shape, profile=None):
+    """The uint8 mask of ``shape`` that the MSB-first bits ``mask_packed``
+    (a ``_HostCopy`` or a tensor) pack, on the host."""
+    mask = np.unpackbits(_host(mask_packed))[:int(np.prod(shape))]
+    _moved(profile, "bytes_mask", mask_packed)
+    return mask.reshape(shape)
+
+
+def _masked_gather(t, mask, profile=None):
+    """``t``'s values at the voxels of the host ``mask`` (its last axes),
+    gathered on the device, with their copy to host started: ``(flat
+    indices, their count, the copy)``."""
+    flat = np.flatnonzero(mask.ravel())
+    idx = torch.from_numpy(flat).to(t.device)
+    vals = _HostCopy(t.reshape(t.shape[:t.dim() - mask.ndim] + (-1,))[
+        ..., idx])
+    _moved(profile, "bytes_gather", idx)
+    _moved(profile, "bytes_gather", vals)
+    return flat, len(flat), vals
+
+
+class _Pipeline:
+    """The skeleton both segmenters run: a frame's device program
+    (``_device_outputs``), then its host half (``_finalize``), which ends in
+    ``_flood``. A subclass gives those two, its mask and seed upload, its
+    device floods (``_approx_flood``, ``_verified``), its host flood and
+    the masked gather that flood reads; ``fin`` is its flood inputs."""
+
+    normalize = False  # the card's ``/ max`` where a call does not say
+    flood_telemetry = False
+    # "exact" runs the host flood on a worker thread under the certificate
+    # when the gather was dispatched early (``_flood_exact``); the labels
+    # are the same either way
+    speculative_flood = True
+    _keeps_ring = False  # whether ``_finalize``'s labels keep the pad ring
 
     @staticmethod
     def normalize_device_flood(value, device=None):
-        """Canonical ``device_flood`` setting (``_normalize_device_flood``):
-        ``"pallas"`` names the hand-written CUDA flood that replaces the
-        Pallas one, so JAX callers move over unchanged. Cache keys use it,
-        so ``True`` and what it resolves to share one pipeline."""
-        return _normalize_device_flood(value, device)
+        """The canonical ``device_flood`` setting: ``False`` (the exact host
+        flood), ``"xla"`` (the torch recurrence of ``ops/device_flood``),
+        ``"pallas"`` (the hand-written CUDA flood, at every frame width: it
+        replaces the Pallas one, so JAX callers move over unchanged) or
+        ``"exact"`` (the verified exact flood of ``ops/flood_exact``, labels
+        bit-equal to the host flood's). ``True`` resolves as JAX resolves
+        it, with the CUDA card in the TPU's role: on a CUDA ``device``
+        (``None``: CUDA when a card is visible) to ``"pallas"`` when the
+        measured link rate (``linkprobe.measure_link_mbps``) reaches
+        ``MEASURED["device_flood_crossover_mbps"]``, else to ``False``; on
+        the CPU to ``"xla"``. ``None`` is ``False``. Cache keys use it, so
+        ``True`` and what it resolves to share one pipeline."""
+        if value is True:
+            if device is None:
+                device = "cuda" if torch.cuda.is_available() else "cpu"
+            device = torch.device(device)
+            if device.type == "cuda":
+                from . import linkprobe
+
+                mbps = linkprobe.measure_link_mbps(device)
+                value = ("pallas" if mbps is not None and mbps
+                         >= linkprobe.MEASURED["device_flood_crossover_mbps"]
+                         else False)
+            else:
+                value = "xla"
+        value = value or False
+        if value not in _MODES:
+            raise ValueError(f"unknown device_flood {value!r}; expected one "
+                             "of False, True, 'xla', 'pallas', 'exact'")
+        return value
+
+    def segment(self, volume, out=None, profile=None, normalize=None):
+        """Instance labels (int32) of one prepared zyx volume: of
+        ``volume.shape`` for the affinity, of ``volume.shape + 2`` for the
+        DoG (the padded frame, the reference's ``current_output`` contract).
+        ``out``: the affinity's flat padded buffer or the DoG's padded
+        frame, which takes the labels. ``normalize``: divide by the volume's
+        max on the device (``None``: the pipeline's ``normalize``). Integer
+        volumes upload in their source dtype (``_upload_frame``)."""
+        volume = np.asarray(volume)
+        with _on(self.device):
+            with span("dispatch", profile, "device_program"):
+                outs = self._device_outputs(
+                    volume, self.device, (self.normalize if normalize is None
+                                          else normalize))
+            return self._finalize(volume.shape, outs, out=out,
+                                  profile=profile)
+
+    def segment_stack(self, stack, output_labels, skip_labelled=True,
+                      profile=None, devices=None):
+        """Pipelined 4D (t, z, y, x) segmentation: frame t+1's device work is
+        queued before frame t's host half runs. Writes the frame's labels
+        into ``output_labels[t]`` and yields t (warm restart when
+        ``skip_labelled``). ``devices``: a list of ``torch.device``s the
+        frames round-robin over (frame parallelism); each device builds
+        what it runs at its first frame, and the labels are those of the
+        one-device call."""
+        from ..core.volume import restore_labels
+
+        inner = (slice(1, -1) if self._keeps_ring else slice(None),) * 3
+
+        def dispatch_one(t, device):
+            with span("dispatch", profile, "device_program"):
+                raw = np.asarray(stack[t])
+                vol, kept, dev_norm = _prepare_frame(raw)
+                outs = self._device_outputs(
+                    vol, self.device if device is None else device,
+                    dev_norm or self.normalize)
+            return vol.shape, outs, kept, raw.shape
+
+        def finalize_one(job):
+            zyx, outs, kept, orig_shape = job
+            labels = self._finalize(zyx, outs, profile=profile)
+            with span("restore"):
+                return restore_labels(labels[inner], kept, orig_shape)
+
+        # the module's ``_drive_stack``, looked up now: a control may wrap it
+        yield from _drive_stack(stack, output_labels, skip_labelled,
+                                devices, dispatch_one, finalize_one,
+                                self.device)
+
+    def _flood(self, fin, n, gather, out=None, profile=None, probe=None):
+        """The frame's labels by the ``device_flood`` mode, written into
+        ``out`` when it is given. A device mode runs on a frame with seeds
+        (``n`` of them); where it returns ``None``, the exact host flood
+        runs, on ``gather`` (the masked gather, dispatched early) or on one
+        dispatched now. ``probe``: ``_flood_exact``'s."""
+        labels = None
+        if self.device_flood and n:
+            labels = (self._flood_exact(fin, n, gather, out, profile, probe)
+                      if self.device_flood == "exact"
+                      else self._flood_on_device(fin, n, out, profile))
+        if labels is None:
+            if gather is None:
+                with span("gather_dispatch", profile):
+                    gather = self._gather(fin, profile)
+            labels = self._host_flood(fin, gather, out=out, profile=profile)
+        return labels
+
+    def _flood_on_device(self, fin, n, out=None, profile=None):
+        """``"pallas"`` and ``"xla"``, the approximate device floods: upload
+        the filtered mask and the seeds, flood on the device with the
+        subclass's CUDA kernel (``"pallas"``, its steps in
+        ``flood_launches``) or torch recurrence (``"xla"``, its steps in
+        ``flood_iters``), both capped at ``_FLOOD_MAX_STEPS``, and download
+        the labels. With ``flood_telemetry`` the certificate runs beside it
+        (``_telemetry``). ``None`` when the flood did not converge."""
+        global _flood_fallbacks
+        with span("upload_mask_seeds", profile):
+            mask_dev, seeds_dev = self._upload_mask_seeds(fin, profile)
+            values, kernel, recurrence = self._approx_flood(fin)
+        with span("device_flood", profile):
+            if self.device_flood == "pallas":
+                lab_dev, n_steps, conv = kernel(
+                    values, seeds_dev, mask_dev,
+                    max_launches=_FLOOD_MAX_STEPS, inner_cap=1)
+                key = "flood_launches"  # steps of the one persistent launch
+            else:
+                lab_dev, n_steps, conv = recurrence(
+                    values, seeds_dev, mask_dev, mode="claim",
+                    max_iters=_FLOOD_MAX_STEPS)
+                key = "flood_iters"
+            if profile is not None:
+                profile[key] = n_steps
+        if self.flood_telemetry and profile is not None:
+            with span("flood_telemetry", profile):
+                _telemetry(values, seeds_dev, mask_dev, lab_dev, profile)
+        if not conv:
+            _flood_fallbacks += 1
+            if profile is not None:
+                profile["flood_fallback"] = True
+            return None
+        return self._into(out, self._download(lab_dev, n, profile))
+
+    def _flood_exact(self, fin, n, gather=None, out=None, profile=None,
+                     probe=None):
+        """``"exact"``: the subclass's verified exact flood (``_verified``,
+        behind the tie probe) on the device, labels bit-equal to the exact
+        host flood's, or ``None`` for that flood.
+
+        ``probe``: an early-dispatched tie density (the affinity's, on the
+        pre-filter mask); past ``TIE_PROBE_DEFAULT`` the mode returns
+        ``None`` at once. ``gather``: the early-dispatched gather; with it
+        the exact host flood runs on a worker thread (``_Speculative``)
+        while this thread runs the certificate, and its labels are taken
+        on every fallback."""
+        from ..ops.flood_exact import TIE_PROBE_DEFAULT
+
+        if probe is not None:
+            with span("tie_probe"):
+                pre_tie_frac = float(probe)
+            if pre_tie_frac > TIE_PROBE_DEFAULT:
+                if profile is not None:
+                    profile["flood_tie_frac"] = pre_tie_frac
+                    # the early probe saw the pre-size-filter mask, a superset
+                    profile["flood_tie_frac_scope"] = "prefilter"
+                    profile["flood_exact_path"] = "fallback:tie-density"
+                return None
+        # this mode's phases; ``profile`` takes some of them below
+        phases = None if profile is None else {}
+        with span("upload_mask_seeds", phases):
+            mask_dev, seeds_dev = self._upload_mask_seeds(fin, profile)
+        spec = None
+        if gather is not None and self.speculative_flood:
+            spec = _Speculative(lambda prof: self._host_flood(
+                fin, gather, profile=prof))
+            spec.start()
+        try:
+            with span("flood_certificate", phases):
+                lab_dev, resolved, unc_count, n_mask, tie_frac, max_key = (
+                    self._verified(fin, mask_dev, seeds_dev))
+        finally:
+            # the worker's labels are proven equal to resolved device labels
+            if spec is not None:
+                with span("flood_spec_waited", phases):
+                    spec_labels, spec_prof = spec.join()
+        path = _exact_path(profile, resolved, unc_count, n_mask, tie_frac,
+                           max_key=max_key)
+        if profile is not None:
+            profile["flood_certificate"] = phases["flood_certificate"]
+            if spec is not None:
+                profile["flood_spec_waited"] = phases["flood_spec_waited"]
+        if path.startswith("fallback"):
+            if spec is None:
+                return None
+            if profile is not None:
+                profile["flood_speculative"] = True
+                for k, v in spec_prof.items():
+                    profile[k] = profile.get(k, 0.0) + v
+            return self._into(out, spec_labels)
+        if profile is not None:
+            profile["device_flood"] = profile.get("device_flood", 0.0) + (
+                phases["upload_mask_seeds"] + phases["flood_certificate"])
+        return self._into(out, self._download(lab_dev, n, profile))
+
+    def _download(self, lab_dev, n, profile=None):
+        """The device labels as int32 on the host, in the frame that
+        ``_finalize`` returns; they cross the link as uint16 when the seed
+        count ``n`` allows."""
+        with span("download_labels", profile):
+            if not self._keeps_ring:
+                lab_dev = lab_dev[1:-1, 1:-1, 1:-1]
+            wire = lab_dev.to(torch.int32 if n >= 2 ** 16 else torch.uint16)
+            _moved(profile, "bytes_labels", wire)
+            return _host(wire).astype(np.int32)
+
+    def _into(self, out, labels):
+        """``labels`` written into ``out`` under ``restore``: the DoG's
+        padded frame takes them whole; the affinity's flat padded buffer
+        takes them inside a zero ring, and its view of them is returned in
+        their place. ``labels`` themselves without ``out``."""
+        if out is None:
+            return labels
+        with span("restore"):
+            if self._keeps_ring:
+                out[...] = labels
+                return labels
+            out[:] = 0
+            view = out.reshape(tuple(s + 2 for s in labels.shape))[
+                1:-1, 1:-1, 1:-1]
+            view[:] = labels
+        return view
+
+
+class AffinityPipeline(_Pipeline):
+    """U-Net → watershed segmentation of one zyx volume, device-resident."""
 
     def __init__(self, model, chunk_size=(10, 256, 256),
                  margin=(1, 64, 64), absolute_thresh=None,
@@ -541,9 +769,6 @@ class AffinityPipeline:
         # the certificate beside the approximate floods: the profile gets a
         # rigorous bound on the share of labels that differ from the heap's
         self.flood_telemetry = bool(flood_telemetry)
-        # "exact" runs the host flood on a worker thread under the
-        # certificate (``_flood_exact``); labels are the same either way
-        self.speculative_flood = True
         self._programs = {}
         # (pshape, buffer): reused host scatter buffer of the flood's input
         self._aff_host = (None, None)
@@ -590,20 +815,19 @@ class AffinityPipeline:
         return torch.full((), float(t32), dtype=torch.float32,
                           device=otsu.device)
 
-    def _device_outputs(self, x, device=None, normalize=None):
-        """Run F → P → C on a host volume (no host synchronisation) and start
-        the host copies of the mask bits and the candidate count."""
+    def _device_outputs(self, x, device, normalize):
+        """Run F → P → C on a host volume on ``device`` (no host
+        synchronisation) and start the host copies of the mask bits and the
+        candidate count."""
         from ..ops.watershed import _prep_feature_maps
 
-        device = self.device if device is None else torch.device(device)
         zyx = tuple(int(s) for s in x.shape)
         # the microbatch is resolved on the pipeline's own device, so a
         # frame's forward (hence its labels) does not depend on the card
         # that took it
         program = get_feature_program(
             self.model, zyx, self.chunk_size, self.margin,
-            microbatch=self.microbatch,
-            normalize=self.normalize if normalize is None else normalize,
+            microbatch=self.microbatch, normalize=normalize,
             device=self.device,
         )
         out = program(x, device=device)
@@ -615,19 +839,16 @@ class AffinityPipeline:
         return (aff_pad, _HostCopy(mask_packed), order, _HostCopy(n_cand),
                 thresh, cent_smooth)
 
-    def _dispatch_gather(self, aff_pad, mask_pad, profile=None):
-        """Gather the affinities at the masked voxels on the device and
-        start their copy to host; returns ``(pre_idx, m, vals)``."""
-        pre_idx = np.flatnonzero(mask_pad.ravel())
-        idx = torch.from_numpy(pre_idx).to(aff_pad.device)
-        vals = _HostCopy(aff_pad.reshape(3, -1)[:, idx])
-        _moved(profile, "bytes_gather", idx)
-        _moved(profile, "bytes_gather", vals)
-        return pre_idx, len(pre_idx), vals
+    @staticmethod
+    def _gather(fin, profile=None):
+        """The host flood's input ``(pre_idx, m, vals)``: the affinities at
+        the voxels of ``fin``'s mask (``_masked_gather``)."""
+        return _masked_gather(fin[0], fin[1], profile)
 
-    def _upload_mask_seeds(self, aff_pad, mask_pad, centroids, profile=None):
+    def _upload_mask_seeds(self, fin, profile=None):
         """The filtered mask (as packed bits) and the seeds, labels 1..n in
-        row order, on the device of ``aff_pad``."""
+        row order, on the device of the padded affinities."""
+        aff_pad, mask_pad, centroids = fin
         dev = aff_pad.device
         bits = np.packbits(mask_pad.view(np.bool_).ravel())
         coords = np.ascontiguousarray(centroids, np.int64)
@@ -638,166 +859,24 @@ class AffinityPipeline:
             torch.arange(1, len(centroids) + 1, dtype=torch.int32,
                          device=dev), mask_pad.shape)
 
-    def _flood_on_device(self, aff_pad, mask_pad, centroids, out=None,
-                         profile=None):
-        """The approximate device floods: upload the filtered mask (packed
-        bits) and the seeds, flood over the device-resident padded
-        affinities — the CUDA kernel (``"pallas"``) or the torch claim
-        recurrence (``"xla"``, ``ops/device_flood.wavefront_flood``) — and
-        download cropped labels. With ``flood_telemetry`` the certificate
-        runs beside it (``_telemetry``). Returns int32 labels of the
-        cropped shape, or ``None`` when the flood did not converge (the
-        caller then runs the exact host flood)."""
-        global _flood_fallbacks
-        pshape = mask_pad.shape
-        n = len(centroids)
-        with span("upload_mask_seeds", profile):
-            mask_dev, seeds_dev = self._upload_mask_seeds(
-                aff_pad, mask_pad, centroids, profile)
-        with span("device_flood", profile):
-            if self.device_flood == "pallas":
-                from ..ops.flood_kernel import affinity_flood
+    @staticmethod
+    def _approx_flood(fin):
+        """The approximate floods over the device-resident padded
+        affinities: the CUDA kernel (``ops/flood_kernel``) and the torch
+        claim recurrence (``ops/device_flood.wavefront_flood``)."""
+        from ..ops.device_flood import wavefront_flood
+        from ..ops.flood_kernel import affinity_flood
 
-                lab_dev, n_steps, conv = affinity_flood(
-                    aff_pad, seeds_dev, mask_dev,
-                    max_launches=_FLOOD_MAX_LAUNCHES, inner_cap=1)
-                key = "flood_launches"  # steps of the one persistent launch
-            else:
-                from ..ops.device_flood import wavefront_flood
+        return fin[0], affinity_flood, wavefront_flood
 
-                lab_dev, n_steps, conv = wavefront_flood(
-                    aff_pad, seeds_dev, mask_dev, mode="claim",
-                    max_iters=512)
-                key = "flood_iters"
-            if profile is not None:
-                profile[key] = n_steps
-        if self.flood_telemetry and profile is not None:
-            with span("flood_telemetry", profile):
-                _telemetry(aff_pad, seeds_dev, mask_dev, lab_dev, profile)
-        if not conv:
-            _flood_fallbacks += 1
-            if profile is not None:
-                profile["flood_fallback"] = True
-            return None
-        with span("download_labels", profile):
-            wire = _crop_cast(lab_dev, wide=n >= 2 ** 16)
-            _moved(profile, "bytes_labels", wire)
-            labels = _host(wire).astype(np.int32)
-        return _into(out, pshape, labels)
-
-    def _flood_exact(self, aff_pad, mask_pad, centroids, out=None,
-                     profile=None, pre_tie_frac=None, gather=None):
-        """``device_flood="exact"``: the verified exact flood
-        (``ops/flood_exact.verified_exact_flood``, behind the tie probe) on
-        the device, labels bit-equal to the host heap's. Returns cropped
-        int32 labels, or ``None`` for the exact host flood.
-
-        ``pre_tie_frac``: the early-dispatched probe's tie density (on the
-        pre-filter mask); past ``TIE_PROBE_DEFAULT`` the mode returns
-        ``None`` at once. ``gather``: the early-dispatched ``(pre_idx, m,
-        vals)``; with it the exact host flood runs on a worker thread
-        (``_Speculative``) while this thread runs the certificate, and its
-        labels are taken on every fallback."""
+    @staticmethod
+    def _verified(fin, mask_dev, seeds_dev):
+        """``ops/flood_exact.verified_exact_flood`` on the padded
+        affinities."""
         from ..ops.flood_exact import TIE_PROBE_DEFAULT, verified_exact_flood
 
-        if pre_tie_frac is not None and pre_tie_frac > TIE_PROBE_DEFAULT:
-            if profile is not None:
-                profile["flood_tie_frac"] = pre_tie_frac
-                # the early probe saw the pre-size-filter mask, a superset
-                profile["flood_tie_frac_scope"] = "prefilter"
-                profile["flood_exact_path"] = "fallback:tie-density"
-            return None
-        pshape = mask_pad.shape
-        n = len(centroids)
-        # this mode's phases; ``profile`` takes some of them below
-        phases = None if profile is None else {}
-        with span("upload_mask_seeds", phases):
-            mask_dev, seeds_dev = self._upload_mask_seeds(
-                aff_pad, mask_pad, centroids, profile)
-        spec = None
-        if gather is not None:
-            pre_idx, m, vals = gather
-            spec = _Speculative(lambda prof: self._host_flood(
-                pre_idx, m, vals, mask_pad, centroids, out=None,
-                profile=prof))
-            spec.start()
-        try:
-            with span("flood_certificate", phases):
-                lab_dev, resolved, unc_count, n_mask, tie_frac = (
-                    verified_exact_flood(aff_pad, seeds_dev, mask_dev,
-                                         tie_probe=TIE_PROBE_DEFAULT))
-        finally:
-            # the worker's labels are proven equal to resolved device labels
-            with span("flood_spec_waited", phases):
-                spec_labels, spec_prof = (spec.join() if spec is not None
-                                          else (None, {}))
-        path = _exact_path(profile, resolved, unc_count, n_mask, tie_frac)
-        if profile is not None:
-            profile["flood_certificate"] = phases["flood_certificate"]
-            if spec is not None:
-                profile["flood_spec_waited"] = phases["flood_spec_waited"]
-        if path.startswith("fallback"):
-            if spec is None:
-                return None
-            if profile is not None:
-                profile["flood_speculative"] = True
-                for k, v in spec_prof.items():
-                    profile[k] = profile.get(k, 0.0) + v
-            return _into(out, pshape, spec_labels)
-        if profile is not None:
-            profile["device_flood"] = profile.get("device_flood", 0.0) + (
-                phases["upload_mask_seeds"] + phases["flood_certificate"])
-        with span("download_labels", profile):
-            wire = _crop_cast(lab_dev, wide=n >= 2 ** 16)
-            _moved(profile, "bytes_labels", wire)
-            labels = _host(wire).astype(np.int32)
-        return _into(out, pshape, labels)
-
-    def segment_stack(self, stack, output_labels, skip_labelled=True,
-                      profile=None, devices=None):
-        """Pipelined 4D (t, z, y, x) segmentation: frame t+1's device work is
-        queued before frame t's host flood runs. Writes ``output_labels[t]``
-        and yields t (warm restart when ``skip_labelled``). ``devices``: a
-        list of ``torch.device``s the frames round-robin over (frame
-        parallelism); each device builds its U-Net replica at its first
-        frame, and the labels are those of the one-device call."""
-        from ..core.volume import restore_labels
-
-        def dispatch_one(t, device):
-            with span("dispatch", profile, "device_program"):
-                raw = np.asarray(stack[t])
-                vol, kept, dev_norm = _prepare_frame(raw)
-                outs = self._device_outputs(
-                    vol, device=device, normalize=True if dev_norm else None)
-            return vol.shape, outs, kept, raw.shape
-
-        def finalize_one(job):
-            zyx, outs, kept, orig_shape = job
-            labels = self._finalize(zyx, outs, profile=profile)
-            with span("restore"):
-                return restore_labels(labels, kept, orig_shape)
-
-        yield from _drive_stack(stack, output_labels, skip_labelled,
-                                devices, dispatch_one, finalize_one,
-                                self.device)
-
-    def segment(self, volume, out=None, profile=None):
-        """Instance labels (int32, ``volume.shape``) for one prepared zyx
-        volume. Integer volumes upload in their source dtype."""
-        with _on(self.device):
-            return self._segment(volume, out, profile)
-
-    def _segment(self, volume, out=None, profile=None):
-        volume = np.asarray(volume)
-        if (np.issubdtype(volume.dtype, np.integer)
-                and volume.dtype.itemsize <= 4):
-            volume = np.ascontiguousarray(volume)
-        else:
-            volume = np.ascontiguousarray(volume, dtype=np.float32)
-        zyx = volume.shape
-        with span("dispatch", profile, "device_program"):
-            outs = self._device_outputs(volume)
-        return self._finalize(zyx, outs, out=out, profile=profile)
+        return verified_exact_flood(fin[0], seeds_dev, mask_dev,
+                                    tie_probe=TIE_PROBE_DEFAULT) + (None,)
 
     def _finalize(self, zyx, outs, out=None, profile=None):
         """Host half: wait for the device, unpack the mask, spacing, size
@@ -811,20 +890,16 @@ class AffinityPipeline:
             with span("device_wait", profile, "device_program"):
                 n_cand = int(_host(n_cand))
             with span("download_mask_cands", profile):
-                nvox = int(np.prod(zyx))
                 overflow = n_cand > self.cand_capacity
                 order_small = None if overflow else _HostCopy(order[:n_cand])
-                mask_u8 = np.unpackbits(_host(mask_packed))[:nvox].reshape(
-                    zyx)
-                _moved(profile, "bytes_mask", mask_packed)
-                mask_pad = np.pad(mask_u8, 1)
-            exact = self.device_flood == "exact"
-            if not self.device_flood or exact:
+                mask_pad = np.pad(_host_mask(mask_packed, zyx, profile), 1)
+            probe = gather = None
+            if self.device_flood in (False, "exact"):
                 with span("gather_dispatch", profile):
                     # exact mode: the tie probe on the device-resident
                     # outputs, read after the host filter work it hides
                     # under
-                    if exact:
+                    if self.device_flood:
                         probe = _tie_probe(mask_packed.tensor if isinstance(
                             mask_packed, _HostCopy) else mask_packed,
                             aff_pad)
@@ -832,8 +907,7 @@ class AffinityPipeline:
                     # host's spacing and size filter (in exact mode it is
                     # the fallback's input, and the speculative host
                     # flood's)
-                    pre_idx, m, vals = self._dispatch_gather(
-                        aff_pad, mask_pad, profile)
+                    gather = self._gather((aff_pad, mask_pad), profile)
             with span("host_spacing", profile):
                 if overflow:
                     from ..ops.peaks import peak_local_max
@@ -854,37 +928,18 @@ class AffinityPipeline:
                         mask_pad.view(np.bool_), centroids,
                         min_area=10, max_area=10000000,
                     )
-            if self.device_flood:
-                if len(centroids):
-                    if exact:
-                        with span("tie_probe"):
-                            tie_frac = float(probe)
-                        labels = self._flood_exact(
-                            aff_pad, mask_pad, centroids, out=out,
-                            profile=profile, pre_tie_frac=tie_frac,
-                            gather=((pre_idx, m, vals)
-                                    if self.speculative_flood else None))
-                    else:
-                        labels = self._flood_on_device(
-                            aff_pad, mask_pad, centroids, out=out,
-                            profile=profile)
-                    if labels is not None:
-                        return labels
-                if not exact:
-                    with span("gather_dispatch", profile):
-                        pre_idx, m, vals = self._dispatch_gather(
-                            aff_pad, mask_pad, profile)
-            return self._host_flood(pre_idx, m, vals, mask_pad, centroids,
-                                    out=out, profile=profile)
+            return self._flood((aff_pad, mask_pad, centroids), len(centroids),
+                               gather, out=out, profile=profile, probe=probe)
 
-    def _host_flood(self, pre_idx, m, vals, mask_pad, centroids, out=None,
-                    profile=None):
+    def _host_flood(self, fin, gather, out=None, profile=None):
         """The exact host-heap half: take the masked affinity gather,
         scatter it into the reused host buffer, seed the markers and run the
         C++ priority flood (pure-python oracle fallback). Returns cropped
-        int32 labels. Also the speculative body of ``_flood_exact``, then
-        with ``out=None`` (the caller copies into ``out`` after the
-        join)."""
+        int32 labels, written into the flat padded ``out`` when it is given.
+        Also the speculative body of ``_flood_exact``, then with
+        ``out=None`` (the caller copies into ``out`` after the join)."""
+        _, mask_pad, centroids = fin
+        pre_idx, m, vals = gather
         with span("gather_affinities", profile):
             vals = _host(vals)[:, :m]
         with span("flood", profile):
@@ -928,17 +983,13 @@ class AffinityPipeline:
             return output.reshape(pshape)[1:-1, 1:-1, 1:-1]
 
 
-class DoGPipeline:
+class DoGPipeline(_Pipeline):
     """DoG blob segmentation of one zyx volume, device-resident (the
     device twin of ``dog_blob_watershed_for_chunks``): labels bit-equal to
     the host path. The device ships the SQUARED EDT (exact integers) and
     the host flood orders by it, which is the order of scipy's f64 EDT."""
 
-    @staticmethod
-    def normalize_device_flood(value, device=None):
-        """Canonical ``device_flood`` setting (``_normalize_device_flood``):
-        ``"pallas"`` is the CUDA image kernel, at every frame width."""
-        return _normalize_device_flood(value, device)
+    _keeps_ring = True
 
     def __init__(self, min_sigma=1, max_sigma=1.5, threshold=0.02,
                  sigma_ratio=1.6, cand_capacity: int = _CAND_CAP,
@@ -956,20 +1007,14 @@ class DoGPipeline:
         self.sigma_list = np.array(
             [self.min_sigma * self.sigma_ratio ** i for i in range(k + 1)])
 
-    def _program(self, vol, normalize=False):
-        """The device half on an uploaded frame; returns ``(mask_packed,
-        order, n_cand, dist_sq, cube)``, all on zyx + 2. ``normalize``
-        divides by the volume max on the device, bit-identical to the
-        host's ``/ max`` (int -> f32 is exact, max is exact selection, the
-        same f32 division), so integer frames upload in their dtype."""
+    def _program(self, vol):
+        """The device half on an uploaded float32 frame; returns
+        ``(mask_packed, order, n_cand, dist_sq, cube)``, all on zyx + 2."""
         from ..ops.edt import edt_sq
         from ..ops.filters import gaussian
 
         thr = _f32(self.threshold)
         sf = _f32(1.0 / (self.sigma_ratio - 1.0))
-        vol = vol.to(torch.float32)
-        if normalize:
-            vol = vol / torch.amax(vol)
         vol_pad = torch.nn.functional.pad(vol, (1, 1, 1, 1, 1, 1))
         # threshold mask from the classic DoG image (segmentation.py:635)
         dog = (gaussian(vol_pad, self.min_sigma)
@@ -988,161 +1033,72 @@ class DoGPipeline:
         dist_sq = edt_sq(vol_pad != 0)
         return mask_packed, order.to(torch.int32), n_cand, dist_sq, cube
 
-    def _device_outputs(self, volume, device=None, normalize=False):
-        """Upload one volume and run the device half (no host
-        synchronisation); starts the host copies of the candidate count
-        and, unless the flood runs on the device, of the mask bits."""
-        device = self.device if device is None else torch.device(device)
-        volume = np.asarray(volume)
-        if not (normalize and np.issubdtype(volume.dtype, np.integer)
-                and volume.dtype.itemsize <= 4):
-            volume = np.asarray(volume, dtype=np.float32)
-        x = torch.from_numpy(np.ascontiguousarray(volume)).to(device)
+    def _device_outputs(self, volume, device, normalize):
+        """Upload one volume to ``device`` (``_upload_frame``) and run the
+        device half (no host synchronisation); starts the host copies of the
+        candidate count and, unless the flood runs on the device, of the
+        mask bits."""
         mask_packed, order, n_cand, dist_sq, cube = self._program(
-            x, normalize=normalize)
+            _upload_frame(np.asarray(volume), device, normalize))
         if not self.device_flood:
             mask_packed = _HostCopy(mask_packed)
         return mask_packed, order, _HostCopy(n_cand), dist_sq, cube
 
-    def segment(self, volume, out=None, profile=None, normalize=False):
-        """Labels of shape ``volume.shape + 2`` (the padded frame, the
-        reference's ``current_output`` contract for the DoG path).
-        ``normalize``: run the ``/ max`` on the device (integer volumes
-        then upload in their source dtype)."""
-        with _on(self.device):
-            return self._segment(volume, out, profile, normalize)
+    def _gather(self, fin, profile=None, mask=None):
+        """The host flood's input ``(mask, m, vals)``: the bool mask (unpacked
+        from ``fin``'s bits unless given) and the masked d² gather (the host
+        flood reads distances at masked voxels only), whose copy runs under
+        the host blob pruning."""
+        mask_packed, dist_sq = fin[:2]
+        if mask is None:
+            mask = _host_mask(mask_packed, dist_sq.shape, profile).view(
+                np.bool_)
+        return (mask,) + _masked_gather(dist_sq, mask, profile)[1:]
 
-    def _segment(self, volume, out=None, profile=None, normalize=False):
-        volume = np.asarray(volume)
-        with span("dispatch", profile, "device_program"):
-            outs = self._device_outputs(volume, normalize=normalize)
-        return self._finalize(volume.shape, outs, out=out, profile=profile)
-
-    def segment_stack(self, stack, output_labels, skip_labelled=True,
-                      profile=None, devices=None):
-        """Pipelined 4D (t, z, y, x) DoG segmentation: frame t+1's device
-        half is queued before frame t's host half runs. Writes cropped
-        labels into ``output_labels[t]`` and yields t (warm restart when
-        ``skip_labelled``). ``devices``: a list of ``torch.device``s the
-        frames round-robin over (frame parallelism), the labels those of
-        the one-device call."""
-        from ..core.volume import restore_labels
-
-        def dispatch_one(t, device):
-            with span("dispatch", profile, "device_program"):
-                raw = np.asarray(stack[t])
-                vol, kept, dev_norm = _prepare_frame(raw)
-                outs = self._device_outputs(vol, device=device,
-                                            normalize=dev_norm)
-            return vol.shape, outs, kept, raw.shape
-
-        def finalize_one(job):
-            zyx, outs, kept, orig_shape = job
-            padded = self._finalize(zyx, outs, profile=profile)
-            with span("restore"):
-                return restore_labels(padded[1:-1, 1:-1, 1:-1], kept,
-                                      orig_shape)
-
-        yield from _drive_stack(stack, output_labels, skip_labelled,
-                                devices, dispatch_one, finalize_one,
-                                self.device)
-
-    @staticmethod
-    def _mask_seeds(mask_packed, dist_sq, markers, profile=None):
+    def _upload_mask_seeds(self, fin, profile=None):
         """The flood's mask from the device-resident bits and the seeds
-        (``markers``' labels at their voxels), on the device of
-        ``dist_sq``."""
+        (``markers``' labels at their voxels), on the device of the squared
+        EDT."""
+        mask_packed, dist_sq, markers = fin
         dev = dist_sq.device
         coords = np.argwhere(markers > 0)
         labs = markers[tuple(coords.T)].astype(np.int32)
         _moved(profile, "bytes_mask_seeds", coords)
         _moved(profile, "bytes_mask_seeds", labs)
-        bits = (mask_packed if isinstance(mask_packed, torch.Tensor)
-                else torch.from_numpy(_host(mask_packed)))
-        return _flood_prep(bits.to(dev), torch.from_numpy(coords).to(dev),
+        # a device mode leaves the bits on the device (``_device_outputs``)
+        return _flood_prep(mask_packed.to(dev),
+                           torch.from_numpy(coords).to(dev),
                            torch.from_numpy(labs).to(dev),
                            tuple(dist_sq.shape))
 
-    def _flood_on_device(self, mask_packed, dist_sq, markers, profile=None):
-        """The approximate device floods on ``-sqrt(d²)``: upload the seeds,
-        flood over the device-resident mask bits and squared EDT — the CUDA
-        image kernel (``"pallas"``) or the torch hop-tie recurrence
-        (``"xla"``, ``ops/device_flood.wavefront_image_flood_core``) — and
-        download labels of the padded frame in the wire dtype. Returns int32
-        labels, or ``None`` when the flood did not converge (the caller then
-        runs the exact host flood)."""
-        global _flood_fallbacks
-        with span("upload_mask_seeds", profile):
-            mask_dev, seeds_dev = self._mask_seeds(mask_packed, dist_sq,
-                                                   markers, profile)
-            # f32 sqrt is correctly rounded, like the host's f64 sqrt cast
-            # to f32, so these are the host path's priorities
-            values = -torch.sqrt(dist_sq)
-        with span("device_flood", profile):
-            if self.device_flood == "pallas":
-                from ..ops.image_flood_kernel import image_flood
+    @staticmethod
+    def _approx_flood(fin):
+        """The approximate floods on ``-sqrt(d²)``: the CUDA image kernel
+        (``ops/image_flood_kernel``) and the torch hop-tie recurrence
+        (``ops/device_flood.wavefront_image_flood_core``)."""
+        from ..ops.device_flood import wavefront_image_flood_core
+        from ..ops.image_flood_kernel import image_flood
 
-                lab_dev, n_steps, conv = image_flood(
-                    values, seeds_dev, mask_dev,
-                    max_launches=_FLOOD_MAX_LAUNCHES, inner_cap=1)
-                key = "flood_launches"  # steps of the one persistent launch
-            else:
-                from ..ops.device_flood import wavefront_image_flood_core
-
-                lab_dev, n_steps, conv = wavefront_image_flood_core(
-                    values, seeds_dev, mask_dev, mode="claim", max_iters=512)
-                key = "flood_iters"
-            if profile is not None:
-                profile[key] = n_steps
-        if not conv:
-            _flood_fallbacks += 1
-            if profile is not None:
-                profile["flood_fallback"] = True
-            return None
-        return self._download(lab_dev, markers, profile)
+        # f32 sqrt is correctly rounded, like the host's f64 sqrt cast to
+        # f32, so these are the host path's priorities
+        return -torch.sqrt(fin[1]), image_flood, wavefront_image_flood_core
 
     @staticmethod
-    def _download(lab_dev, markers, profile):
-        with span("download_labels", profile):
-            wide = int(markers.max(initial=0)) >= 2 ** 16
-            wire = lab_dev.to(torch.int32 if wide else torch.uint16)
-            _moved(profile, "bytes_labels", wire)
-            return _host(wire).astype(np.int32)
-
-    def _flood_exact(self, mask_packed, dist_sq, markers, profile=None):
-        """``device_flood="exact"``: the verified exact image flood
-        (``ops/flood_exact.verified_exact_image_flood``, behind the tie
-        probe) on ``-d²``, not ``-sqrt(d²)``: a strictly monotone transform
-        keeps every comparison and every exact tie, and ``-d²`` is an exact
-        f32 integer. It orders as the host flood's ``-sqrt`` priorities do
-        below ``native.BUCKET_FLOOD_MAX_KEY``, which the returned
-        ``max_key`` is checked against. Returns int32 labels of the padded
-        frame, bit-equal to the default host flood's, or ``None`` for the
-        host flood."""
+    def _verified(fin, mask_dev, seeds_dev):
+        """``ops/flood_exact.verified_exact_image_flood`` on ``-d²``, not
+        ``-sqrt(d²)``: a strictly monotone transform keeps every comparison
+        and every exact tie, and ``-d²`` is an exact f32 integer. It orders
+        as the host flood's ``-sqrt`` priorities do below
+        ``native.BUCKET_FLOOD_MAX_KEY``, which the returned ``max_key`` (the
+        largest masked d²) is checked against."""
         from ..ops.flood_exact import (TIE_PROBE_DEFAULT,
                                        verified_exact_image_flood)
 
-        # this mode's phases; ``profile`` takes some of them below
-        phases = None if profile is None else {}
-        with span("upload_mask_seeds", phases):
-            mask_dev, seeds_dev = self._mask_seeds(mask_packed, dist_sq,
-                                                   markers, profile)
-        with span("flood_certificate", phases):
-            lab_dev, resolved, unc_count, n_mask, tie_frac = (
-                verified_exact_image_flood(-dist_sq, seeds_dev, mask_dev,
-                                           tie_probe=TIE_PROBE_DEFAULT))
-            max_key = int(torch.where(mask_dev, dist_sq, 0).max().to(
-                torch.int32))
-        path = _exact_path(profile, resolved, unc_count, n_mask, tie_frac,
-                           max_key=max_key)
-        if profile is not None:
-            profile["flood_certificate"] = phases["flood_certificate"]
-        if path.startswith("fallback"):
-            return None
-        if profile is not None:
-            profile["device_flood"] = profile.get("device_flood", 0.0) + (
-                phases["upload_mask_seeds"] + phases["flood_certificate"])
-        return self._download(lab_dev, markers, profile)
+        dist_sq = fin[1]
+        found = verified_exact_image_flood(-dist_sq, seeds_dev, mask_dev,
+                                           tie_probe=TIE_PROBE_DEFAULT)
+        return found + (int(torch.where(mask_dev, dist_sq, 0).max().to(
+            torch.int32)),)
 
     def _finalize(self, zyx, outs, out=None, profile=None):
         """Host half: wait for the device, blob pruning, seed labelling and
@@ -1154,24 +1110,6 @@ class DoGPipeline:
 
         mask_packed, order, n_cand, dist_sq, cube = outs
         pshape = tuple(int(s) + 2 for s in zyx)
-        nvox = int(np.prod(pshape))
-
-        def unpack_mask():
-            mask = np.unpackbits(_host(mask_packed))[:nvox].view(
-                np.bool_).reshape(pshape)
-            _moved(profile, "bytes_mask", mask_packed)
-            return mask
-
-        def dispatch_gather(mask):
-            """Masked d² gather (the host flood reads distances at masked
-            voxels only); its copy runs under the host blob pruning."""
-            dev_idx = np.flatnonzero(mask.ravel())
-            idx = torch.from_numpy(dev_idx).to(dist_sq.device)
-            vals = _HostCopy(dist_sq.reshape(-1)[idx])
-            _moved(profile, "bytes_gather", idx)
-            _moved(profile, "bytes_gather", vals)
-            return len(dev_idx), vals
-
         with group("finalize"):
             with span("device_wait", profile, "device_program"):
                 n_cand = int(_host(n_cand))
@@ -1193,10 +1131,13 @@ class DoGPipeline:
                     idx_sorted = _host(order[:n_cand])
                 coords4 = np.stack(np.unravel_index(idx_sorted, cube_shape),
                                    axis=1)
-                mask = None if self.device_flood else unpack_mask()
+                mask = (None if self.device_flood else _host_mask(
+                    mask_packed, pshape, profile).view(np.bool_))
+            gather = None
             if mask is not None:
                 with span("gather_dispatch", profile):
-                    m, vals = dispatch_gather(mask)
+                    gather = self._gather((mask_packed, dist_sq), profile,
+                                          mask)
             with span("host_blobs", profile):
                 coords4 = _ensure_spacing(coords4, spacing=1)
                 lm = coords4.astype(np.float64)
@@ -1206,31 +1147,19 @@ class DoGPipeline:
                 centroids = np.zeros(pshape, dtype=bool)
                 if len(blobs):
                     centroids[tuple(blobs.T.astype(int))[:-1]] = True
-                markers, _ = label_np(centroids)
-            labels = None
-            if self.device_flood:
-                flood = (self._flood_exact if self.device_flood == "exact"
-                         else self._flood_on_device)
-                labels = flood(mask_packed, dist_sq, markers, profile=profile)
-                if labels is None:
-                    # the exact host flood: unpack the mask and gather now
-                    with span("gather_dispatch", profile):
-                        mask = unpack_mask()
-                        m, vals = dispatch_gather(mask)
-            if labels is None:
-                labels = self._host_flood(mask, markers, m, vals,
-                                          profile=profile)
-            if out is not None:
-                with span("restore"):
-                    out[...] = labels
-            return labels
+                markers, n = label_np(centroids)
+            return self._flood((mask_packed, dist_sq, markers), n, gather,
+                               out=out, profile=profile)
 
-    def _host_flood(self, mask, markers, m, vals, profile=None):
+    def _host_flood(self, fin, gather, out=None, profile=None):
         """The exact flood on the host, over the frame padded once more
         (the native floods need a ring outside the mask): the bucket queue
         over integer d² below ``BUCKET_FLOOD_MAX_KEY``, the heap on
         ``-sqrt(d²)`` past it, the pure-python heap without the native
-        library."""
+        library. Returns int32 labels of zyx + 2, written into ``out``
+        when it is given."""
+        markers = fin[2]
+        mask, m, vals = gather
         with span("gather_distance", profile):
             vals_sq = _host(vals)[:m]
         with span("flood", profile):
@@ -1271,20 +1200,8 @@ class DoGPipeline:
                     priorities().reshape(wshape)[inner], markers, mask)
                 output = np.pad(labels_p, 1).astype(np.int32).ravel()
             del vals_sq  # its pinned buffer is freed here, inside the span
-            return output.reshape(wshape)[1:-1, 1:-1, 1:-1]
-
-
-def _into(out, pshape, labels):
-    """``labels`` (the cropped frame) written into the padded flat ``out``
-    with a zero ring, returning the view; ``labels`` itself without
-    ``out``."""
-    if out is None:
-        return labels
-    with span("restore"):
-        out[:] = 0
-        view = out.reshape(pshape)[1:-1, 1:-1, 1:-1]
-        view[:] = labels
-    return view
+            labels = output.reshape(wshape)[1:-1, 1:-1, 1:-1]
+        return self._into(out, labels)
 
 
 def _telemetry(aff_pad, seeds, mask, lab_flood, profile):

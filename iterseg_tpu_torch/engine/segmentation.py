@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from ..core.volume import prepare_volume, restore_labels
+from ..device import resolve_device
 from ..io.zarr_io import save_labels_to_ome
 from ..ops import watershed as ws
 from ..ops.blob import blob_dog, blob_log
@@ -34,6 +35,7 @@ from ..ops.edt import edt_np
 from ..ops.filters import dog_image as _dog_image_t
 from ..ops.filters import gaussian
 from ..utils import call_span, carried, count, frame_span, span
+from .device_pipeline import AffinityPipeline, DoGPipeline, _prepare_frame
 from .predict import load_unet, predict_volume
 
 __all__ = [
@@ -91,8 +93,6 @@ def _config_or(config, key, default):
 def _devices(devices):
     """The devices a run uses: ``None`` is ``[cuda]``; a list is resolved
     entry by entry (several entries may name one device)."""
-    from ..device import resolve_device
-
     if devices is None:
         return [resolve_device(None)]
     devices = [resolve_device(d) for d in devices]
@@ -110,8 +110,6 @@ def _first_device(devices):
 def dog_image(input_vol, sigma_min, sigma_max, device=None):
     """Difference of Gaussians on ``device`` (CUDA by default), as numpy —
     parity: segmentation.py:678-680."""
-    from ..device import resolve_device
-
     x = torch.as_tensor(np.asarray(input_vol), device=resolve_device(device))
     return _dog_image_t(x, sigma_min, sigma_max).cpu().numpy()
 
@@ -134,7 +132,7 @@ def affinity_watershed_prep_config(input_volume_layer, unet_or_config_file,
     ``affinities_extent``, ``compute_dtype``, ``device_flood``,
     ``flood_telemetry``), or ``None`` for the bundled default checkpoint.
     ``compute_dtype="bfloat16"`` runs the forward in bf16. ``device_flood``
-    (``device_pipeline._normalize_device_flood``): ``"pallas"`` floods on
+    (``AffinityPipeline.normalize_device_flood``): ``"pallas"`` floods on
     the GPU with the CUDA kernel and ``"xla"`` with the torch recurrence
     (both approximate), ``"exact"`` runs the verified flood (labels
     bit-equal to the default exact host flood), ``True`` picks by the
@@ -180,31 +178,13 @@ def affinity_watershed_prep_config(input_volume_layer, unet_or_config_file,
             "flood_telemetry": bool(flood_telemetry)}
 
 
-def _affinity_pipeline_ready(unet, output_volume,
-                             use_device_pipeline=True):
-    """Whether ``affinity_watershed_for_chunks`` takes the device-pipeline
-    fast path — one definition, shared with ``segment_single_volume``'s
-    integer-upload gate."""
-    return (use_device_pipeline and unet is not None
-            and getattr(output_volume, "shape", (0,))[0] == 5)
-
-
-def _pipeline(cache, unet, chunk_size, margin, device_flood,
-              flood_telemetry=False, device_normalize=False, device=None):
-    from .device_pipeline import AffinityPipeline
-
-    device_flood = AffinityPipeline.normalize_device_flood(device_flood,
-                                                           device)
-    key = (tuple(chunk_size), tuple(margin), device_flood,
-           bool(flood_telemetry), bool(device_normalize), str(device))
-    if key not in cache:
-        count("pipelines")
-        cache[key] = AffinityPipeline(
-            unet, chunk_size=chunk_size, margin=margin,
-            device_flood=device_flood, flood_telemetry=flood_telemetry,
-            normalize=bool(device_normalize), device=device,
-        )
-    return cache[key]
+def _host_normalised(volume, device_normalize):
+    """With ``device_normalize`` the caller skipped host normalisation for
+    the device pipeline's ``/ max``: it runs here (same arithmetic)."""
+    if not device_normalize:
+        return volume
+    volume = np.asarray(volume).astype(np.float32)
+    return volume / np.max(volume)
 
 
 def affinity_watershed_for_chunks(
@@ -230,23 +210,20 @@ def affinity_watershed_for_chunks(
     ``segment_output_image`` path (``use_device_pipeline=False``)."""
     if unet is None:
         raise ValueError("unet must not be None")
-    device = _first_device(devices)
-    if _affinity_pipeline_ready(unet, output_volume, use_device_pipeline):
-        if pipeline_cache is None:
-            pipeline_cache = {}
-        pipe = _pipeline(pipeline_cache, unet, chunk_size, margin,
-                         device_flood, flood_telemetry, device_normalize,
-                         device)
+    pipe = _device_pipeline(
+        affinity_watershed_for_chunks, chunk_size, margin,
+        pipeline_cache=pipeline_cache,
+        use_device_pipeline=use_device_pipeline, device_flood=device_flood,
+        devices=devices, unet=unet, output_volume=output_volume,
+        flood_telemetry=flood_telemetry)
+    if pipe is not None:
         pipe.segment(input_volume, out=current_output.ravel(),
-                     profile=profile)
+                     profile=profile, normalize=bool(device_normalize))
         return
+    device = _first_device(devices)
     if output_volume is None:
         raise ValueError("output_volume must not be None")
-    if device_normalize:
-        # the caller skipped host normalisation expecting the device
-        # pipeline to /max on the device: do it here (same arithmetic)
-        input_volume = input_volume.astype(np.float32)
-        input_volume = input_volume / np.max(input_volume)
+    input_volume = _host_normalised(input_volume, device_normalize)
     if output_volume.shape[1:] != input_volume.shape:
         # zero-slice removal shrank the frame
         output_volume = np.zeros(
@@ -358,21 +335,6 @@ def dog_blob_watershed_prep_config(
     }
 
 
-def _dog_pipeline(cache, min_sigma, max_sigma, threshold, device_flood,
-                  device):
-    from .device_pipeline import DoGPipeline
-
-    device_flood = DoGPipeline.normalize_device_flood(device_flood, device)
-    key = ("dog", float(min_sigma), float(max_sigma), float(threshold),
-           device_flood, str(device))
-    if key not in cache:
-        count("pipelines")
-        cache[key] = DoGPipeline(min_sigma=min_sigma, max_sigma=max_sigma,
-                                 threshold=threshold,
-                                 device_flood=device_flood, device=device)
-    return cache[key]
-
-
 def dog_blob_watershed_for_chunks(
     input_volume,
     current_output,
@@ -398,20 +360,18 @@ def dog_blob_watershed_for_chunks(
     bit-identical to the host path (``use_device_pipeline=False``).
     ``flood_telemetry`` is accepted for config uniformity and ignored, as
     in the JAX package (there is no image-flood certificate)."""
-    device = _first_device(devices)
-    if use_device_pipeline:
-        if pipeline_cache is None:
-            pipeline_cache = {}
-        pipe = _dog_pipeline(pipeline_cache, min_sigma, max_sigma, threshold,
-                             device_flood, device)
+    pipe = _device_pipeline(
+        dog_blob_watershed_for_chunks, chunk_size, margin,
+        pipeline_cache=pipeline_cache,
+        use_device_pipeline=use_device_pipeline, device_flood=device_flood,
+        devices=devices, min_sigma=min_sigma, max_sigma=max_sigma,
+        threshold=threshold)
+    if pipe is not None:
         pipe.segment(input_volume, out=current_output, profile=profile,
                      normalize=bool(device_normalize))
         return
-    if device_normalize:
-        # the caller skipped host normalisation expecting the device /max:
-        # do it here (same arithmetic)
-        input_volume = np.asarray(input_volume).astype(np.float32)
-        input_volume = input_volume / np.max(input_volume)
+    device = _first_device(devices)
+    input_volume = _host_normalised(input_volume, device_normalize)
     input_volume = np.pad(input_volume, pad_width=1)
     dog = dog_image(input_volume, min_sigma, max_sigma, device=device)
     mask = dog > threshold
@@ -768,6 +728,42 @@ class SegmentationWorker:
         return self._result
 
 
+def _device_pipeline(segmenter, chunk_size, margin, pipeline_cache=None,
+                     use_device_pipeline=True, device_flood=False,
+                     devices=None, unet=None, output_volume=None,
+                     flood_telemetry=False, min_sigma=None, max_sigma=None,
+                     threshold=None, **_):
+    """The device pipeline that serves ``segmenter`` (a ``*_for_chunks``
+    function) under a config's keywords, from ``pipeline_cache``, or
+    ``None`` where the host path runs: ``use_device_pipeline`` off, a
+    segmenter with no pipeline, or an affinity config without a U-Net of
+    the five channels. Pipelines are cached under their own resolved
+    constructor arguments and built on the first of ``devices``."""
+    if not use_device_pipeline:
+        return None
+    if segmenter is affinity_watershed_for_chunks:
+        if unet is None or getattr(output_volume, "shape", (0,))[0] != 5:
+            return None
+        cls, args = AffinityPipeline, {
+            "model": unet, "chunk_size": tuple(chunk_size),
+            "margin": tuple(margin), "flood_telemetry": bool(flood_telemetry)}
+    elif segmenter is dog_blob_watershed_for_chunks:
+        cls, args = DoGPipeline, {"min_sigma": float(min_sigma),
+                                  "max_sigma": float(max_sigma),
+                                  "threshold": float(threshold)}
+    else:
+        return None
+    args["device"] = _first_device(devices)
+    args["device_flood"] = cls.normalize_device_flood(device_flood,
+                                                      args["device"])
+    cache = {} if pipeline_cache is None else pipeline_cache
+    key = (cls,) + tuple(args.items())
+    if key not in cache:
+        count("pipelines")
+        cache[key] = cls(**args)
+    return cache[key]
+
+
 def segmentation_loop(viewer, data, chunk_size, margin, output_labels,
                       processing_function, config):
     """Per-frame segmentation generator with warm restart: a 4D store's
@@ -787,38 +783,14 @@ def segmentation_loop(viewer, data, chunk_size, margin, output_labels,
         frame.close()
         yield 0
         return
-    if (
-        processing_function is affinity_watershed_for_chunks
-        and config.get("pipeline_cache") is not None
-        and _affinity_pipeline_ready(config.get("unet"),
-                                     config.get("output_volume"),
-                                     config.get("use_device_pipeline", True))
-    ):
+    pipe = _device_pipeline(processing_function, chunk_size, margin,
+                            **config)
+    if pipe is not None:
         # pipelined 4D fast path: frame t+1's device work overlaps frame
-        # t's host flood, frames round-robin over ``devices`` (the labels
+        # t's host half, frames round-robin over ``devices`` (the labels
         # of the per-frame path on one device)
-        devices = _devices(config.get("devices"))
-        pipe = _pipeline(config["pipeline_cache"], config["unet"],
-                         chunk_size, margin,
-                         config.get("device_flood") or False,
-                         config.get("flood_telemetry", False),
-                         device=devices[0])
-        yield from pipe.segment_stack(data, output_labels, devices=devices)
-        return
-    if (
-        processing_function is dog_blob_watershed_for_chunks
-        and config.get("pipeline_cache") is not None
-        and "min_sigma" in config
-        and config.get("use_device_pipeline", True)
-    ):
-        # pipelined 4D DoG fast path: frame t+1's device half overlaps
-        # frame t's host blob pruning and flood (same labels as per frame)
-        devices = _devices(config.get("devices"))
-        pipe = _dog_pipeline(config["pipeline_cache"], config["min_sigma"],
-                             config["max_sigma"], config["threshold"],
-                             config.get("device_flood") or False,
-                             devices[0])
-        yield from pipe.segment_stack(data, output_labels, devices=devices)
+        yield from pipe.segment_stack(
+            data, output_labels, devices=_devices(config.get("devices")))
         return
     for t in range(data.shape[0]):
         if np.any(np.asarray(output_labels[t])):
@@ -844,27 +816,17 @@ def segment_single_volume(input_volume, chunk_size, config, margin,
     on the device (bit-identical)."""
     raw = np.asarray(input_volume)
     original_shape = raw.shape
-    use_dp = config.get("use_device_pipeline", True)
-    device_pipeline_ready = (
-        (processing_function is affinity_watershed_for_chunks
-         and _affinity_pipeline_ready(config.get("unet"),
-                                      config.get("output_volume"), use_dp))
-        or (processing_function is dog_blob_watershed_for_chunks
-            and use_dp and "min_sigma" in config)
-    )
-    integer_wire = (
-        device_pipeline_ready
-        and np.issubdtype(raw.dtype, np.integer)
-        and raw.dtype.itemsize <= 4
-    )
+    cache = config.get("pipeline_cache")
+    cache = {} if cache is None else cache  # the gate's build serves the call
+    pipe = _device_pipeline(processing_function, chunk_size, margin,
+                            **{**config, "pipeline_cache": cache})
     # the frame's preparation is part of its dispatch (a stack's frames
     # prepare inside the pipeline's own ``dispatch`` span)
     with span("dispatch"):
-        if integer_wire:
-            from .device_pipeline import _prepare_frame
-
-            input_volume, kept, _dev_norm = _prepare_frame(raw)
-            config = {**config, "device_normalize": True}
+        if pipe is not None:
+            input_volume, kept, device_normalize = _prepare_frame(raw)
+            config = {**config, "pipeline_cache": cache,
+                      "device_normalize": device_normalize}
         else:
             input_volume, kept = prepare_volume(raw.astype(np.float32),
                                                 return_kept=True)

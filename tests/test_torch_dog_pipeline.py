@@ -5,7 +5,8 @@ the CPU, at (10, 48, 48) and (12, 48, 48).
   (``jax.disable_jit``); against jitted JAX the agreement is recorded.
 - Given JAX's device outputs, ``_finalize`` is bit-equal to JAX's.
 - The fast path equals the host path (``use_device_pipeline=False``), and
-  the overflow, no-native and non-convergence paths stay exact.
+  the overflow, no-native and non-convergence paths stay exact (the last
+  in the affinity pipeline too).
 - ``device_flood="pallas"`` keeps the default run's support and id set, at
   agreement > 0.9, also on a wide-X volume where JAX's Pallas kernel would
   reroute (the port never does). ``"xla"`` is bit-equal to JAX's ``"xla"``
@@ -146,15 +147,34 @@ def test_wide_x_runs_the_image_flood_without_reroute(monkeypatch):
     assert set(np.unique(dev)) == set(np.unique(host))
 
 
-def test_non_convergence_takes_the_exact_host_flood(vol, labels,
+@pytest.mark.parametrize("mode", ["pallas", "xla"])
+@pytest.mark.parametrize("kind", ["affinity", "dog"])
+def test_non_convergence_takes_the_exact_host_flood(vol, labels, kind, mode,
                                                     monkeypatch):
-    monkeypatch.setattr(tdp, "_FLOOD_MAX_LAUNCHES", 2)
+    """A device flood cut short by the one step cap (the CUDA kernels'
+    plain versions on the CPU, and the torch recurrences) counts one
+    fallback and hands over to the exact host flood: the default labels,
+    in both pipelines."""
+    if kind == "dog":
+        def make(**kw):
+            return tdp.DoGPipeline(device=CPU, **kw)
+        want = labels
+    else:
+        from iterseg_tpu_torch.engine.predict import load_unet
+
+        model = load_unet(None)
+
+        def make(**kw):
+            return tdp.AffinityPipeline(model, (10, 48, 48), (1, 8, 8),
+                                        device=CPU, **kw)
+        want = make().segment(vol)
+        assert want.max() > 1
+    monkeypatch.setattr(tdp, "_FLOOD_MAX_STEPS", 2)
     tdp.reset_flood_fallbacks()
     prof = {}
-    got = tdp.DoGPipeline(device_flood="pallas", device=CPU).segment(
-        vol, profile=prof)
+    got = make(device_flood=mode).segment(vol, profile=prof)
     assert tdp.flood_fallbacks() == 1 and prof["flood_fallback"]
-    np.testing.assert_array_equal(got, labels)
+    np.testing.assert_array_equal(got, want)
     tdp.reset_flood_fallbacks()
 
 
